@@ -4,12 +4,17 @@
 Run from the repository root:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds every kernel from ops/csrc with nvcc, one process per source.
-3. Kernel phase: holds the rot3 forward and backward kernels against the
-   plain PyTorch version (`rot3_reference` and autograd through it) at the
-   main path's shape [512, 256, 256], in bfloat16 and float32, with the
-   shifts of real rotations, integer shifts and random shifts, and times
-   kernel and plain version with CUDA events.
+2. Builds every kernel from ops/csrc with nvcc, one process per source, all
+   started together.
+3. Kernel phases, at [512, 256, 256] in bfloat16 and float32, with the shifts
+   of real rotations, integer shifts and random shifts; kernels and plain
+   versions are timed with CUDA events:
+   * rot3: the forward and backward kernels against `rot3_reference` and
+     autograd through it;
+   * shear (kernel C), along both axes: the forward against
+     `fractional_shift_reference` (bit-equal), the fused backward against
+     `fractional_shift_vjp_reference` (dx bit-equal) and against autograd
+     through the plain version.
 4. Agreement phase: the f32 model on the card (kernels) against the same
    weights on the CPU (plain versions, which tests/test_torch_*.py hold
    against the JAX package) on a small batch.
@@ -17,10 +22,16 @@ Run from the repository root:  python3 chip_smoke.py
    128 / latent 16 / bfloat16, 2 epochs of fused paired training at batch 512
    (AdamW 1e-3, weight decay 1e-5, beta = gamma = 10, canonical weight 0.2,
    clip 20), each followed by the fused eval over 2 val batches, then a fused
-   encode. Launch counters are zeroed just before and read just after; every
-   train step must launch the forward kernel 3 times and the backward twice.
-6. Prints one {"kernels": [...]} line and, last, the
-   {"ok": true, "device": {...}} line.
+   encode. Every train step must launch the rot3 forward 3 times, its
+   backward twice, and no shear kernel.
+6. Rotation paths: `rotate_image_fast(backend="shear")` against "fused" on
+   [512, 1, 128, 128] (canvas 256) in f32 and bf16; a [64, 3, 128, 128]
+   rotation under "auto" (kernel C, not rot3); three fused paired train steps
+   of `RVAE(fast_resample=False)` at batch 512 in bf16 (rot3 only for the
+   augmentation); `python -m livae_tpu_torch.bench_rotate --reps 3`.
+Around each driven path the launch counters are zeroed just before and read
+just after. Then it prints one {"kernels": [...]} line and, last, the
+{"ok": true, "device": {...}} line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also exits non-zero without CUDA or without the package.
@@ -37,11 +48,14 @@ import time
 import numpy as np
 import torch
 
+from livae_tpu_torch import bench_rotate
 from livae_tpu_torch.data.datasets import PairedAdaptiveLatticeDataset
 from livae_tpu_torch.data.synthetic import synthetic_mos2_frame
 from livae_tpu_torch.models.rvae import RVAE
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
+from livae_tpu_torch.ops import shear as SH
+from livae_tpu_torch.ops.resample import aligned_margin, rotate_image_fast
 from livae_tpu_torch.train.engine import (
     make_fused_encode,
     make_fused_rvae_eval,
@@ -53,6 +67,7 @@ from livae_tpu_torch.train.state import make_optimizer
 SHAPE = (512, 256, 256)  # rot3's canvas on the main path at batch 512, patch 128
 PATCH, LATENT, BATCH, PADDING = 128, 16, 512, 32
 STEPS_PER_EPOCH, EPOCHS, VAL_BATCHES, ENCODE_STEPS = 6, 2, 2, 4
+EXACT_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -60,6 +75,15 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def zero_counts() -> None:
+    R.FWD_LAUNCHES = R.BWD_LAUNCHES = SH.FWD_LAUNCHES = SH.BWD_LAUNCHES = 0
+
+
+def counts() -> dict[str, int]:
+    return {"rot3_fwd": R.FWD_LAUNCHES, "rot3_bwd": R.BWD_LAUNCHES,
+            "shear_fwd": SH.FWD_LAUNCHES, "shear_bwd": SH.BWD_LAUNCHES}
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -162,6 +186,78 @@ def kernel_phase():
     return err, ms, bound
 
 
+def shear_kernel_phase():
+    """Hold kernel C's forward and fused backward against the plain versions
+    along both axes; time them at bf16 with the shifts of real rotations."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, P, _ = SHAPE
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
+        for axis in (2, 1):
+            for kind in ("rotation", "integer", "random"):
+                x = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
+                g = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
+                d_row, d_col = _deltas(kind, gen, B, P)
+                delta = d_row if axis == 2 else d_col
+                ins = [t.clone().requires_grad_(True) for t in (x, delta)]
+                y = SH.FractionalShiftFunction.apply(*ins, axis)
+                dx, dd = torch.autograd.grad(y, ins, g)
+                y_ref = SH.fractional_shift_reference(x, delta, axis)
+                dx_v, dd_v = SH.fractional_shift_vjp_reference(x, delta, g, axis)
+                dx_a, dd_a = torch.autograd.grad(SH.fractional_shift_reference(*ins, axis), ins, g)
+                torch.cuda.synchronize()
+                fe = (y.float() - y_ref.float()).abs().max().item()
+                xe = (dx.float() - dx_v.float()).abs().max().item()
+                xa = (dx.float() - dx_a.float()).abs().max().item()
+                de = (dd - dd_v).abs().max().item()
+                da = (dd - dd_a).abs().max().item()
+                # forward and dx: the same f32 operations with no FMA contraction,
+                # so bit-equal. dx against autograd: the -delta shift rounds 1 - f
+                # once more where |delta| < 1, a few ulps of g. d delta: sums of P
+                # products in another order. Autograd's d delta does not round
+                # g1 - g0 to bf16 as the JAX formula does, so it is held only in f32.
+                tol_a = 4 * ulp * g.float().abs().max().item()
+                tol_d = 1e-4 * max(1.0, dd_v.abs().max().item())
+                print(f"shear {str(dtype)[6:]:8s} axis {axis} {kind:8s} fwd {fe:.3e} (tol 0) "
+                      f"dx {xe:.3e} (tol 0) dx-autograd {xa:.3e} (tol {tol_a:.1e}) "
+                      f"d_delta {de:.3e} (tol {tol_d:.1e}) d_delta-autograd {da:.3e}")
+                check(fe == 0.0, f"shear forward {dtype} axis {axis} {kind}")
+                check(xe == 0.0, f"shear backward dx {dtype} axis {axis} {kind}")
+                check(xa <= tol_a, f"shear backward dx vs autograd {dtype} axis {axis} {kind}")
+                check(de <= tol_d, f"shear backward d_delta {dtype} axis {axis} {kind}")
+                if dtype == torch.float32:
+                    check(da <= tol_d, f"shear d_delta vs autograd axis {axis} {kind}")
+                err["fwd"] = max(err["fwd"], fe)
+                err["bwd"] = max(err["bwd"], xe, de)
+
+    x = torch.randn(SHAPE, device=dev, generator=gen).bfloat16()
+    g = torch.randn(SHAPE, device=dev, generator=gen).bfloat16()
+    ms = {}
+    for kind in ("random", "rotation"):
+        d_row, d_col = _deltas(kind, gen, B, P)
+        for axis, delta in ((1, d_col), (2, d_row)):
+            ms["fwd"] = median_ms(lambda: SH._launch_fwd(x, delta, axis))
+            ms["bwd"] = median_ms(lambda: SH._launch_bwd(x, delta, g, axis))
+            print(f"shear kernels, bf16 {list(SHAPE)}, axis {axis}, {kind} shifts: forward "
+                  f"{ms['fwd']:.4f} ms, backward {ms['bwd']:.4f} ms")
+    # the line's figures: axis 2 with the shifts of real rotations (the last pair)
+    ms["fwd_plain"] = median_ms(lambda: SH.fractional_shift_reference(x, delta, 2), reps=10)
+    ms["bwd_plain"] = median_ms(
+        lambda: SH.fractional_shift_vjp_reference(x, delta, g, 2), reps=10)
+
+    n, io, dl = B * P * P, x.element_size(), 4 * B * P
+    bound = {
+        "fwd": max((2 * n * io + dl) / HBM_BYTES_PER_S, 4 * n / F32_FLOP_PER_S) * 1e3,
+        "bwd": max((3 * n * io + 2 * dl) / HBM_BYTES_PER_S, 7 * n / F32_FLOP_PER_S) * 1e3,
+    }
+    for k in ("fwd", "bwd"):
+        print(f"shear_{k} bf16 {list(SHAPE)} axis 2: kernel {ms[k]:.4f} ms, plain "
+              f"{ms[k + '_plain']:.4f} ms, bound {bound[k]:.4f} ms (bytes)")
+    return err, ms, bound
+
+
 def agreement_phase():
     """f32 model on the card vs the same weights on the CPU, small batch."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -182,17 +278,22 @@ def agreement_phase():
     check(worst <= 2e-4, "model on the card disagrees with the CPU")
 
 
-def main_path():
-    # Main path: the convolutions run in bfloat16 (TF32 does not apply); the
-    # float32 dense layers run in full float32 (matmul TF32 off, the default).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
+def bench_dataset():
+    """(dataset, build seconds) of the bench frame, as bench.py builds it."""
     t0 = time.perf_counter()
     frame, _ = synthetic_mos2_frame(size=1024, spacing=40.0, seed=0)
     ds = PairedAdaptiveLatticeDataset([frame], patch_size=PATCH, padding=PADDING, device="cuda")
     build_s = time.perf_counter() - t0
+    check(len(ds) == 1409, f"site table has {len(ds)} sites, the bench frame gives 1409")
+    return ds, build_s
+
+
+def main_path(ds, build_s: float):
+    # Main path: the convolutions run in bfloat16 (TF32 does not apply); the
+    # float32 dense layers run in full float32 (matmul TF32 off, the default).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
     n = len(ds)
-    check(n == 1409, f"site table has {n} sites, the bench frame gives 1409")
     model = RVAE(LATENT, 1, PATCH, "bfloat16", device="cuda",
                  generator=torch.Generator().manual_seed(1))
     opt = make_optimizer(model.parameters(), 1e-3, optimizer="adamw", weight_decay=1e-5)
@@ -206,7 +307,7 @@ def main_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    R.FWD_LAUNCHES = R.BWD_LAUNCHES = 0
+    zero_counts()
     epochs = []
     for e in range(EPOCHS):
         idx = torch.randint(0, n, (STEPS_PER_EPOCH, BATCH), generator=gen, device="cuda")
@@ -237,15 +338,17 @@ def main_path():
     mu, logvar, theta = encode(frames_padded, img_idx, coords, eidx)
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
-    launches = {"fwd": R.FWD_LAUNCHES, "bwd": R.BWD_LAUNCHES}
+    launches = counts()
     m = ENCODE_STEPS * BATCH
     check(tuple(mu.shape) == (m, LATENT) and tuple(logvar.shape) == (m, LATENT)
           and tuple(theta.shape) == (m, 1), "encode shapes")
     check(bool(torch.isfinite(mu).all() and torch.isfinite(logvar).all()
                and torch.isfinite(theta).all()), "encode outputs not finite")
     steps = EPOCHS * STEPS_PER_EPOCH
-    check(launches["fwd"] == 3 * steps + 3 * EPOCHS * VAL_BATCHES + 2 * ENCODE_STEPS
-          and launches["bwd"] == 2 * steps, f"main path launches {launches}")
+    check(launches["rot3_fwd"] == 3 * steps + 3 * EPOCHS * VAL_BATCHES + 2 * ENCODE_STEPS
+          and launches["rot3_bwd"] == 2 * steps
+          and launches["shear_fwd"] == launches["shear_bwd"] == 0,
+          f"main path launches {launches}")
 
     last = epochs[-1]
     result = {
@@ -259,6 +362,109 @@ def main_path():
         "launches": launches,
     }
     return result
+
+
+def rotation_path_phase():
+    """The per-shear rotation path against the fused rot3, and a multi-channel
+    rotation under "auto"; returns the launches of both."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, S = 512, PATCH
+    margin = aligned_margin(S)  # canvas 256
+    launches = {k: 0 for k in counts()}
+    for dtype in (torch.float32, torch.bfloat16):
+        img = torch.rand((B, 1, S, S), device=dev, generator=gen).to(dtype)
+        th = (torch.rand(B, device=dev, generator=gen) * 2 - 1) * torch.pi
+        out, grad = {}, {}
+        for backend in ("fused", "shear"):
+            t = th.clone().requires_grad_(True)
+            zero_counts()
+            out[backend] = rotate_image_fast(img, t, "reflection", margin=margin, backend=backend)
+            grad[backend] = torch.autograd.grad(out[backend].float().square().sum(), t)[0]
+            torch.cuda.synchronize()
+            got = counts()
+            want = ({"rot3_fwd": 1, "rot3_bwd": 1, "shear_fwd": 0, "shear_bwd": 0}
+                    if backend == "fused" else
+                    {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 3, "shear_bwd": 3})
+            check(got == want, f"rotate_image_fast({backend}) {dtype} launches {got}")
+            for k in launches:
+                launches[k] += got[k]
+        fe = (out["shear"].float() - out["fused"].float()).abs().max().item()
+        ge = (grad["shear"] - grad["fused"]).abs().max().item()
+        scale = grad["fused"].abs().max().item()
+        # the same f32 lerps and one cast: bit-equal. d theta: the two backwards
+        # sum the delta cotangents over the canvas in other orders.
+        tol_g = 1e-3 * max(1.0, scale)
+        print(f"rotation {str(dtype)[6:]:8s} [{B}, 1, {S}, {S}] canvas {S + 2 * margin}: shear vs "
+              f"fused max_abs_err {fe:.3e} (tol 0), d theta {ge:.3e} (tol {tol_g:.1e})")
+        check(fe == 0.0, f"per-shear rotation differs from the fused rot3 in {dtype}")
+        check(ge <= tol_g, f"per-shear rotation d theta differs from the fused rot3 in {dtype}")
+
+    # three channels take the per-shear path under "auto"; the result agrees with
+    # the CPU port (which the tests hold against the JAX package) up to the last
+    # ulp of tan / sin in the shifts, times shifts of up to about 50 pixels
+    img = torch.rand((64, 3, S, S), device=dev, generator=gen)
+    th = (torch.rand(64, device=dev, generator=gen) * 2 - 1) * torch.pi
+    zero_counts()
+    out = rotate_image_fast(img, th, "reflection")
+    torch.cuda.synchronize()
+    got = counts()
+    check(got["shear_fwd"] == 3 and got["rot3_fwd"] == 0 and got["rot3_bwd"] == 0,
+          f"3-channel auto rotation launches {got}")
+    for k in launches:
+        launches[k] += got[k]
+    want = rotate_image_fast(img.cpu(), th.cpu(), "reflection")
+    e = (out.cpu() - want).abs().max().item()
+    print(f"rotation f32 [64, 3, {S}, {S}] auto: card vs CPU max_abs_err {e:.3e} (tol 1e-4)")
+    check(tuple(out.shape) == (64, 3, S, S) and e <= 1e-4, "3-channel rotation")
+    return launches
+
+
+def exact_train_phase(ds):
+    """Fused paired training of RVAE(fast_resample=False), bf16, batch 512."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    model = RVAE(LATENT, 1, PATCH, "bfloat16", fast_resample=False, device="cuda",
+                 generator=torch.Generator().manual_seed(1))
+    opt = make_optimizer(model.parameters(), 1e-3, optimizer="adamw", weight_decay=1e-5)
+    frames_padded, img_idx, coords, margin = ds.device_site_table
+    step = make_fused_rvae_train_step(model, opt, cfg=ds.transform, canonical_weight=0.2,
+                                      grad_max_norm=20.0, patch_size=PATCH, padding=PADDING,
+                                      margin=margin)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    warm = torch.randint(0, len(ds), (1, BATCH), generator=gen, device="cuda")
+    metrics_to_host(step(frames_padded, img_idx, coords, warm, gen, 10.0, 10.0))
+    idx = torch.randint(0, len(ds), (EXACT_STEPS, BATCH), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    tm = metrics_to_host(step(frames_padded, img_idx, coords, idx, gen, 10.0, 10.0))
+    dt = time.perf_counter() - t0
+    got = counts()
+    check(got == {"rot3_fwd": EXACT_STEPS, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0},
+          f"exact-resample train launches {got}")
+    for name, v in tm.items():
+        check(bool(np.isfinite(v).all()), f"exact-resample metric {name} not finite")
+    result = {"train_patches_per_s": EXACT_STEPS * BATCH / dt, "steps": EXACT_STEPS,
+              "loss": float(tm["loss"]), "launches": got}
+    print(f"exact-resample train: {EXACT_STEPS} steps in {dt:.3f} s, "
+          f"{result['train_patches_per_s']:.1f} patches/s, loss {result['loss']:.4f}")
+    return result
+
+
+def bench_phase():
+    """python -m livae_tpu_torch.bench_rotate --reps 3, at its default shapes."""
+    zero_counts()
+    results = bench_rotate.main(["--reps", "3"])
+    torch.cuda.synchronize()
+    got = counts()
+    reps = 3 + 1  # the warm-up call
+    check(got["shear_fwd"] == 2 * 2 * reps and got["shear_bwd"] == 0,
+          f"bench_rotate shear launches {got}")
+    check(got["rot3_fwd"] == 2 * 2 * 2 * reps and got["rot3_bwd"] == 2 * 2 * reps,
+          f"bench_rotate rot3 launches {got}")
+    check(all(np.isfinite(v) and v > 0 for v in results.values()), "bench_rotate times")
+    return results, got
 
 
 def main() -> int:
@@ -281,21 +487,41 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     err, ms, bound = kernel_phase()
+    s_err, s_ms, s_bound = shear_kernel_phase()
     agreement_phase()
-    main = main_path()
+    ds, build_s = bench_dataset()
+    main = main_path(ds, build_s)
     print("main_path " + json.dumps({"card": smi, **main}))
+    rot_launches = rotation_path_phase()
+    exact = exact_train_phase(ds)
+    print("exact_resample_path " + json.dumps({"card": smi, **exact}))
+    bench, bench_launches = bench_phase()
+    print("bench_rotate " + json.dumps({"card": smi, "us_per_patch": bench}))
+    # kernel C runs on the rotation paths of this slice, not on the paired main path
+    shear_launches = {k: rot_launches[k] + bench_launches[k] for k in rot_launches}
+    check(shear_launches["shear_fwd"] > 0 and shear_launches["shear_bwd"] > 0,
+          "the rotation paths launched no shear kernel")
 
-    source = "livae_tpu_torch/ops/csrc/rot3.cu"
-    kernels = [
-        {"name": "rot3_fwd", "route": "cuda", "source": source,
-         "replaces": "livae_tpu/ops/pallas/rot3.py:88", "launches": main["launches"]["fwd"],
-         "max_abs_err": err["fwd"], "ms": ms["fwd"], "plain_ms": ms["fwd_plain"],
-         "bound_ms": bound["fwd"], "bound_by": "bytes", "library_ms": None},
-        {"name": "rot3_bwd", "route": "cuda", "source": source,
-         "replaces": "livae_tpu/ops/pallas/rot3.py:98", "launches": main["launches"]["bwd"],
-         "max_abs_err": err["bwd"], "ms": ms["bwd"], "plain_ms": ms["bwd_plain"],
-         "bound_ms": bound["bwd"], "bound_by": "bytes", "library_ms": None},
+    # library_ms: no single PyTorch call computes a 3-shear lerp rotation, or
+    # shifts each row or column by its own fractional amount with wrap-around
+    rot3_src, shear_src = "livae_tpu_torch/ops/csrc/rot3.cu", "livae_tpu_torch/ops/csrc/shear.cu"
+    entries = [
+        ("rot3_fwd", rot3_src, "livae_tpu/ops/pallas/rot3.py:88", main["launches"], "main",
+         err["fwd"], ms["fwd"], ms["fwd_plain"], bound["fwd"]),
+        ("rot3_bwd", rot3_src, "livae_tpu/ops/pallas/rot3.py:98", main["launches"], "main",
+         err["bwd"], ms["bwd"], ms["bwd_plain"], bound["bwd"]),
+        ("shear_fwd", shear_src, "livae_tpu/ops/pallas/shear.py:38", shear_launches, "rotation",
+         s_err["fwd"], s_ms["fwd"], s_ms["fwd_plain"], s_bound["fwd"]),
+        ("shear_bwd", shear_src, "livae_tpu/ops/pallas/shear.py:124", shear_launches,
+         "rotation", s_err["bwd"], s_ms["bwd"], s_ms["bwd_plain"], s_bound["bwd"]),
     ]
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": path_launches[name], "launches_path": path, "max_abs_err": e, "ms": t,
+         "plain_ms": plain, "bound_ms": b, "bound_by": "bytes", "library_ms": None}
+        for name, src, replaces, path_launches, path, e, t, plain, b in entries
+    ]
+    check(all(k["launches"] > 0 for k in kernels), "a kernel of its path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,12 @@ Mixed precision follows the JAX policy (`compute_dtype`): convolutions cast
 input, weight and bias to the compute dtype; the dense layers and the
 losses stay float32; the STN rotation takes the compute dtype and the
 inverse rotation returns float32.
+
+`fast_resample` picks the rotation, as in the JAX package: True runs the
+3-shear `rotate_image_fast` by the angle; False runs the exact bilinear
+`grid_sample`, in float32 (no cast to the compute dtype), with the matrix
+built from the STN's normalised cos/sin and, for the inverse rotation, from
+cos/sin of -theta.
 """
 
 from __future__ import annotations
@@ -33,7 +39,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.resample import rotate_image_fast
+from ..ops.resample import (
+    affine_grid,
+    grid_sample,
+    rotate_image,
+    rotate_image_fast,
+    rotation_matrix,
+)
 from .vae import ENCODER_WIDTHS, reparameterize
 
 __all__ = ["RotationSTN", "Encoder", "Decoder", "RVAE", "init_torch_default"]
@@ -87,10 +99,11 @@ class RotationSTN(nn.Module):
     """Localisation net predicting a canonicalising angle, plus its rotation."""
 
     def __init__(self, patch_size: int = 64, in_channels: int = 1,
-                 compute_dtype: str | None = None):
+                 compute_dtype: str | None = None, fast_resample: bool = True):
         super().__init__()
         q = patch_size // 4
         self.compute_dtype = compute_dtype
+        self.fast_resample = fast_resample
         self.localization = nn.Sequential(
             nn.Conv2d(in_channels, 16, 5, padding=2),
             nn.MaxPool2d(2),
@@ -125,27 +138,32 @@ class RotationSTN(nn.Module):
         theta = torch.atan2(sin_theta, cos_theta)[:, None]
         return cos_theta, sin_theta, theta
 
-    def apply_rotation(self, x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
-        """The canonicalising rotation, in the compute dtype."""
+    def apply_rotation(self, x: torch.Tensor, cos_theta: torch.Tensor,
+                       sin_theta: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        """The canonicalising rotation of an already-localised angle: the fast
+        one in the compute dtype, or the exact one in float32."""
+        if not self.fast_resample:
+            grid = affine_grid(rotation_matrix(cos_theta, sin_theta), x.shape[2:])
+            return grid_sample(x, grid, padding_mode="reflection")
         cd = _dtype(self.compute_dtype)
         if cd is not None:
             x = x.to(cd)
         return rotate_image_fast(x, theta, padding_mode="reflection")
 
     def forward(self, x: torch.Tensor):
-        _, _, theta = self.localize(x)
-        return self.apply_rotation(x, theta), theta
+        cos_theta, sin_theta, theta = self.localize(x)
+        return self.apply_rotation(x, cos_theta, sin_theta, theta), theta
 
 
 class Encoder(nn.Module):
     """STN canonicalisation + conv trunk -> (mu, logvar, theta)."""
 
     def __init__(self, latent_dim: int = 10, patch_size: int = 64, in_channels: int = 1,
-                 compute_dtype: str | None = None):
+                 compute_dtype: str | None = None, fast_resample: bool = True):
         super().__init__()
         s = patch_size // 16
         self.compute_dtype = compute_dtype
-        self.rotation_stn = RotationSTN(patch_size, in_channels, compute_dtype)
+        self.rotation_stn = RotationSTN(patch_size, in_channels, compute_dtype, fast_resample)
         layers = []
         c_in = in_channels
         for w in ENCODER_WIDTHS:
@@ -184,9 +202,9 @@ class Encoder(nn.Module):
         (mu, logvar, theta, x_canonical, theta_rot)."""
         B = x.shape[0]
         both = torch.cat([x, x_rot.to(x.dtype)], dim=0)
-        _, _, theta_b = self.rotation_stn.localize(both)
+        cos_b, sin_b, theta_b = self.rotation_stn.localize(both)
         theta, theta_rot = theta_b[:B], theta_b[B:]
-        x_rotated = self.rotation_stn.apply_rotation(x, theta)
+        x_rotated = self.rotation_stn.apply_rotation(x, cos_b[:B], sin_b[:B], theta)
         mu, logvar = self._trunk(x_rotated)
         return mu, logvar, theta, x_rotated, theta_rot
 
@@ -232,20 +250,23 @@ class RVAE(nn.Module):
 
     The model factory of the port: built on `device` (CUDA unless
     `device="cpu"`), initialised from `generator` (a CPU torch.Generator;
-    None draws from the global RNG).
+    None draws from the global RNG). `fast_resample=False` takes the exact
+    bilinear rotations (the JAX package's `--exact-resample`).
     """
 
     def __init__(self, latent_dim: int = 10, in_channels: int = 1, patch_size: int = 64,
-                 compute_dtype: str | None = None, *, device=None,
+                 compute_dtype: str | None = None, *, fast_resample: bool = True, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
         self.latent_dim = latent_dim
         self.patch_size = patch_size
         self.compute_dtype = compute_dtype
+        self.fast_resample = fast_resample
         # built without storage, then initialised once on the host from `generator`
         with torch.device("meta"):
-            self.encoder = Encoder(latent_dim, patch_size, in_channels, compute_dtype)
+            self.encoder = Encoder(latent_dim, patch_size, in_channels, compute_dtype,
+                                   fast_resample)
             self.decoder = Decoder(latent_dim, in_channels, patch_size, compute_dtype)
         self.to_empty(device="cpu")
         init_torch_default(self, generator)
@@ -259,6 +280,8 @@ class RVAE(nn.Module):
         """reparameterize -> decode -> inverse rotation (-theta), f32 out."""
         z = reparameterize(mu, logvar, eps, generator)
         recon = self.decoder(z)
+        if not self.fast_resample:
+            return rotate_image(recon, -theta, padding_mode="reflection"), recon
         cd = _dtype(self.compute_dtype)
         rec_in = recon if cd is None else recon.to(cd)
         rotated_recon = rotate_image_fast(rec_in, -theta, padding_mode="reflection").float()

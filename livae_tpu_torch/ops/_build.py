@@ -7,11 +7,11 @@ C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
 
 The libraries go into `livae_tpu_torch/_build/` (listed in `.gitignore`),
-named by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused. Nothing is built when a module is imported: the
-first launch builds, or a caller builds every kernel up front with
-`build_all()` (one nvcc process per source, all started together). A failed
-build raises; there is no fallback.
+named by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+is built when a module is imported: the first launch builds, or a caller
+builds every kernel up front with `build_all()` (one nvcc process per
+source, all started together). A failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "BUILD_LOG", "build_all", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = {"rot3": _CSRC / "rot3.cu"}
+SOURCES = {"rot3": _CSRC / "rot3.cu", "shear": _CSRC / "shear.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -51,8 +51,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

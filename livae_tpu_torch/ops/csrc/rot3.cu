@@ -10,8 +10,8 @@
 // with k = floor(d), f = d - k, and d constant along the shifted axis: Sx shifts
 // along W with one d_row per row, Sy along H with one d_col per column. All three
 // stages stay in f32; the output is cast once to the I/O type. Every lerp rounds
-// each product and the sum on its own (no FMA contraction), so the forward and dx
-// are bit-identical to the plain PyTorch version (livae_tpu_torch/ops/rot3.py,
+// each product and the sum on its own (no FMA contraction, lerp.cuh), so the
+// forward and dx are bit-identical to the plain PyTorch version (livae_tpu_torch/ops/rot3.py,
 // rot3_reference) and to torch autograd through it.
 //
 // The backward recomputes a = Sx(x) and b = Sy(a), then runs the three adjoint
@@ -42,8 +42,7 @@
 // kernels above their bound; shared-memory tiling, a 2-CTA cluster or a smaller
 // canvas are the next steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lerp.cuh"
 
 namespace {
 
@@ -51,40 +50,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxP = 768;  // keeps the dynamic shared memory under 48 KB
 
-__device__ __forceinline__ float load_f(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// (1 - f) * a + f * b, each product and the sum rounded on its own.
-__device__ __forceinline__ float lerp_rn(float a, float b, float f) {
-  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), a), __fmul_rn(f, b));
-}
-
-__device__ __forceinline__ int wrap_up(int i, int P) { return i >= P ? i - P : i; }
-__device__ __forceinline__ int wrap_down(int i, int P) { return i < 0 ? i + P : i; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // k = floor(d) mod P and f = d - floor(d) for the sample's rows and columns.
 __device__ void load_shifts(const float* d_row, const float* d_col, int P, int* kr,
                             float* fr, int* kc, float* fc) {
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const float dr = d_row[i], dc = d_col[i];
-    const float flr = floorf(dr), flc = floorf(dc);
-    int k = static_cast<int>(flr) % P;
-    kr[i] = k < 0 ? k + P : k;
-    fr[i] = __fsub_rn(dr, flr);
-    k = static_cast<int>(flc) % P;
-    kc[i] = k < 0 ? k + P : k;
-    fc[i] = __fsub_rn(dc, flc);
+    split_shift(d_row[i], P, kr + i, fr + i);
+    split_shift(d_col[i], P, kc + i, fc + i);
   }
 }
 

@@ -24,42 +24,22 @@ import ctypes
 import torch
 
 from . import _build
+from .shear import lerp_shift
 
-__all__ = ["rot3", "rot3_reference", "Rot3Function", "FWD_LAUNCHES", "BWD_LAUNCHES"]
+__all__ = ["rot3", "rot3_reference", "Rot3Function", "MAX_P", "FWD_LAUNCHES", "BWD_LAUNCHES"]
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-_MAX_P = 768  # the kernels' limit (ops/csrc/rot3.cu, kMaxP)
-
-
-def _lerp_shift(v: torch.Tensor, delta: torch.Tensor, dim: int) -> torch.Tensor:
-    """out = (1-f) v[(i+k) mod P] + f v[(i+k+1) mod P] along `dim` of [B, P, P].
-
-    delta: [B, P], one shift per row (dim=2) or per column (dim=1).
-    """
-    P = v.shape[dim]
-    k = torch.floor(delta).detach()
-    f = delta - k
-    ar = torch.arange(P, device=v.device)
-    if dim == 2:
-        i0 = torch.remainder(ar[None, None, :] + k.long()[:, :, None], P)
-        f = f[:, :, None]
-    else:
-        i0 = torch.remainder(ar[None, :, None] + k.long()[:, None, :], P)
-        f = f[:, None, :]
-    i1 = torch.remainder(i0 + 1, P)
-    g0 = torch.gather(v, dim, i0)
-    g1 = torch.gather(v, dim, i1)
-    return (1.0 - f) * g0 + f * g1
+MAX_P = 768  # the kernels' limit (ops/csrc/rot3.cu, kMaxP)
 
 
 def rot3_reference(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch rot3: x [B, P, P], d_row/d_col [B, P] -> like x."""
     v = x.float()
-    v = _lerp_shift(v, d_row.float(), 2)
-    v = _lerp_shift(v, d_col.float(), 1)
-    v = _lerp_shift(v, d_row.float(), 2)
+    v = lerp_shift(v, d_row.float(), 2)
+    v = lerp_shift(v, d_col.float(), 1)
+    v = lerp_shift(v, d_row.float(), 2)
     return v.to(x.dtype)
 
 
@@ -87,8 +67,8 @@ def _check(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> tuple[i
     if x.dim() != 3 or x.shape[1] != x.shape[2]:
         raise ValueError(f"rot3 needs a square canvas [B, P, P], got {tuple(x.shape)}")
     B, P = x.shape[0], x.shape[1]
-    if not 2 <= P <= _MAX_P:
-        raise ValueError(f"rot3 kernel canvas must be 2..{_MAX_P}, got {P}")
+    if not 2 <= P <= MAX_P:
+        raise ValueError(f"rot3 kernel canvas must be 2..{MAX_P}, got {P}")
     for name, d in (("d_row", d_row), ("d_col", d_col)):
         if d.shape != (B, P) or d.device != x.device:
             raise ValueError(f"{name} must be [{B}, {P}] on {x.device}, got "

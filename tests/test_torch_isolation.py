@@ -3,8 +3,8 @@
 * Importing livae_tpu_torch, every submodule and chip_smoke.py loads no JAX
   and nothing of livae_tpu, and builds no kernel.
 * Every entry point raises when CUDA is wanted by default and absent.
-* rot3 on a CPU tensor takes the plain version and launches nothing; the
-  kernel path refuses CPU tensors; a failed build raises.
+* rot3 and the fractional shift on a CPU tensor take the plain version and
+  launch nothing; the kernel paths refuse CPU tensors; a failed build raises.
 """
 
 import subprocess
@@ -17,6 +17,7 @@ import torch
 
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
+from livae_tpu_torch.ops import shear as SH
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -48,6 +49,7 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
+    from livae_tpu_torch import bench_rotate
     from livae_tpu_torch.data.datasets import PairedAdaptiveLatticeDataset
     from livae_tpu_torch.data.synthetic import synthetic_mos2_frame
     from livae_tpu_torch.models.rvae import RVAE
@@ -61,6 +63,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
         PairedAdaptiveLatticeDataset([frame], patch_size=32, padding=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         estimate_lattice_constant(frame)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_rotate.main(["--batch", "2", "--reps", "1"])
 
     model = RVAE(8, 1, 32, device="cpu")
     opt = torch.optim.Adam(model.parameters())
@@ -88,6 +92,20 @@ def test_rot3_on_cpu_takes_the_plain_version(rng, monkeypatch):
     assert not _build._LIBS
     with pytest.raises(ValueError, match="CUDA"):
         R.Rot3Function.apply(x, d, d)
+
+
+def test_shear_on_cpu_takes_the_plain_version(rng, monkeypatch):
+    monkeypatch.setattr(SH, "FWD_LAUNCHES", 0)
+    monkeypatch.setattr(SH, "BWD_LAUNCHES", 0)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 12)).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(-3, 3, (2, 12)).astype(np.float32)).requires_grad_(True)
+    out = SH.fractional_shift(x, d, 1)
+    out.sum().backward()
+    assert torch.equal(out, SH.fractional_shift_reference(x, d, 1))
+    assert SH.FWD_LAUNCHES == 0 and SH.BWD_LAUNCHES == 0
+    assert not _build._LIBS
+    with pytest.raises(ValueError, match="CUDA"):
+        SH.FractionalShiftFunction.apply(x, d, 1)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

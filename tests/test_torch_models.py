@@ -35,15 +35,16 @@ def _as_nhwc(t):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(patch, latent):
+def _pair(patch, latent, in_channels=1, fast_resample=True):
     """(JAX model, its params, the port's model with the same weights); the
-    tests only run forward passes, so each size is built once."""
-    jmodel = jrvae.RVAE(latent_dim=latent, patch_size=patch)
+    tests only run forward passes, so each configuration is built once."""
+    jmodel = jrvae.RVAE(latent_dim=latent, in_channels=in_channels, patch_size=patch,
+                        fast_resample=fast_resample)
     params = init_params(
         jmodel, {"params": jax.random.key(0), "sample": jax.random.key(1)},
-        jnp.zeros((1, patch, patch, 1)),
+        jnp.zeros((1, patch, patch, in_channels)),
     )
-    tmodel = RVAE(latent, 1, patch, device="cpu")
+    tmodel = RVAE(latent, in_channels, patch, fast_resample=fast_resample, device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
     return jmodel, params, tmodel
 
@@ -59,12 +60,32 @@ def test_encode_matches(rng, patch, latent):
         np.testing.assert_allclose(_as_nhwc(g), np.asarray(w), atol=ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("patch,latent", SIZES)
-def test_train_forward_paired_matches(rng, monkeypatch, patch, latent):
-    jmodel, params, tmodel = _pair(patch, latent)
+# (patch, latent, in_channels, fast_resample): the two SIZES, the exact
+# bilinear rotations, and three channels (the per-shear rotation path)
+CONFIGS = [(*s, 1, True) for s in SIZES] + [(32, 8, 1, False), (32, 8, 3, True),
+                                            (32, 8, 3, False)]
+CONFIG_IDS = ["32-8", "64-16", "exact", "C3", "C3-exact"]
+
+
+@pytest.mark.parametrize("patch,latent,in_channels,fast_resample", CONFIGS[2:],
+                         ids=CONFIG_IDS[2:])
+def test_encode_matches_resample_variants(rng, patch, latent, in_channels, fast_resample):
+    jmodel, params, tmodel = _pair(patch, latent, in_channels, fast_resample)
+    x = rng.random((4, patch, patch, in_channels)).astype(np.float32)
+    want = jax.jit(lambda p, a: jmodel.apply(p, a, method="encode"))(params, jnp.asarray(x))
+    with torch.no_grad():
+        got = tmodel.encode(_nchw(x))
+    for name, g, w in zip(("mu", "logvar", "theta"), got, want):
+        np.testing.assert_allclose(_as_nhwc(g), np.asarray(w), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("patch,latent,in_channels,fast_resample", CONFIGS, ids=CONFIG_IDS)
+def test_train_forward_paired_matches(rng, monkeypatch, patch, latent, in_channels,
+                                      fast_resample):
+    jmodel, params, tmodel = _pair(patch, latent, in_channels, fast_resample)
     B = 4
-    x = rng.random((B, patch, patch, 1)).astype(np.float32)
-    x_rot = rng.random((B, patch, patch, 1)).astype(np.float32)
+    x = rng.random((B, patch, patch, in_channels)).astype(np.float32)
+    x_rot = rng.random((B, patch, patch, in_channels)).astype(np.float32)
     eps = rng.standard_normal((B, latent)).astype(np.float32)
     monkeypatch.setattr(
         jrvae, "reparameterize",
@@ -88,6 +109,23 @@ def test_state_dict_keys_are_the_reference_layout():
     assert "encoder.rotation_stn.localization.0.weight" in keys
     assert "decoder.deconv_layers.14.weight" in keys
     assert {f"encoder.conv_layers.{i}.weight" for i in (0, 2, 4, 6)} <= keys
+
+
+def test_weight_bridge_takes_three_channels():
+    """The bridge converts any C_in: the input convolutions and the last
+    decoder stage carry three channels, HWIO -> OIHW."""
+    _, params, tmodel = _pair(32, 8, 3, True)
+    state = tmodel.state_dict()
+    p = params["params"]
+    for key, path in [
+        ("encoder.rotation_stn.localization.0", ("encoder", "rotation_stn", "loc_conv0", "conv")),
+        ("encoder.conv_layers.0", ("encoder", "conv0", "conv")),
+        ("decoder.deconv_layers.14", ("decoder", "up_conv3", "conv")),
+    ]:
+        kernel = np.asarray(functools.reduce(lambda n, k: n[k], path, p)["kernel"])
+        assert 3 in state[f"{key}.weight"].shape[:2], key
+        np.testing.assert_array_equal(state[f"{key}.weight"].numpy(),
+                                      kernel.transpose(3, 2, 0, 1), err_msg=key)
 
 
 def test_bfloat16_policy_dtypes(rng):
