@@ -10,7 +10,9 @@ Run from the repository root:  python3 chip_smoke.py
    of real rotations, integer shifts and random shifts; kernels and plain
    versions are timed with CUDA events:
    * rot3: the forward and backward kernels against `rot3_reference` and
-     autograd through it;
+     autograd through it (forward and dx bit-equal), also at edge canvases
+     [3, P, P] for P in 2, 33, 130, 255 and MAX_P; the dx-free backward gives
+     the deltas' bits; times for each cluster size that fits;
    * shear (kernel C), along both axes: the forward against
      `fractional_shift_reference` (bit-equal), the fused backward against
      `fractional_shift_vjp_reference` (dx bit-equal) and against autograd
@@ -30,7 +32,10 @@ Run from the repository root:  python3 chip_smoke.py
    of `RVAE(fast_resample=False)` at batch 512 in bf16 (rot3 only for the
    augmentation); `python -m livae_tpu_torch.bench_rotate --reps 3`.
 Around each driven path the launch counters are zeroed just before and read
-just after. Then it prints one {"kernels": [...]} line and, last, the
+just after. The build step prints each kernel's registers and spills (ptxas);
+the rot3 phase prints each cluster size's time, shared memory per block,
+resident clusters and share of the bound. Then it prints one
+{"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -86,8 +91,10 @@ def counts() -> dict[str, int]:
             "shear_fwd": SH.FWD_LAUNCHES, "shear_bwd": SH.BWD_LAUNCHES}
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event-timed calls of fn, after `warmup` calls."""
+def median_ms(fn, reps: int = 7, warmup: int = 3, inner: int = 10) -> float:
+    """Median over `reps` CUDA-event windows of the time per call of fn, each
+    window `inner` calls back to back (so the host's launch latency overlaps the
+    device's work), after `warmup` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -96,10 +103,11 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -119,8 +127,32 @@ def _deltas(kind: str, gen, B: int, P: int):
             (torch.rand((B, P), device=dev, generator=gen) - 0.5) * 180.0)
 
 
+EDGE_B, EDGE_P = 3, (2, 33, 130, 255, R.MAX_P)  # ragged bands, clusters below 8
+
+
+def _rot3_errors(x, w, d_row, d_col):
+    """rot3's kernels against `rot3_reference` and autograd through it on one
+    input: (forward error, [dx, d_row, d_col] errors, gradient scales). Also
+    checks that the dx-free backward gives the deltas' bits."""
+    y = R.Rot3Function.apply(x, d_row, d_col)
+    y_ref = R.rot3_reference(x, d_row, d_col)
+    ins = [t.clone().requires_grad_(True) for t in (x, d_row, d_col)]
+    gk = torch.autograd.grad(R.Rot3Function.apply(*ins), ins, w)
+    gr = torch.autograd.grad(R.rot3_reference(*ins), ins, w)
+    _, ddr_free, ddc_free = R._launch_bwd(x, d_row, d_col, w, with_dx=False)
+    _, ddr_full, ddc_full = R._launch_bwd(x, d_row, d_col, w, with_dx=True)
+    torch.cuda.synchronize()
+    check(torch.equal(ddr_free, ddr_full) and torch.equal(ddc_free, ddc_full),
+          f"dx-free rot3 backward changes the deltas at {list(x.shape)} {x.dtype}")
+    fe = (y.float() - y_ref.float()).abs().max().item()
+    ge = [(a.float() - b.float()).abs().max().item() for a, b in zip(gk, gr)]
+    scale = [b.float().abs().max().item() for b in gr]
+    return fe, ge, scale
+
+
 def kernel_phase():
-    """Hold both rot3 kernels against the plain version; time them at bf16."""
+    """Hold both rot3 kernels against the plain version at the main path's
+    shape and at edge canvases; time them at bf16 for each cluster size."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, P, _ = SHAPE
@@ -128,61 +160,68 @@ def kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     err = {"fwd": 0.0, "bwd": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        for kind in ("rotation", "integer", "random"):
-            x = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
-            w = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
-            d_row, d_col = _deltas(kind, gen, B, P)
-            y = R.Rot3Function.apply(x, d_row, d_col)
-            y_ref = R.rot3_reference(x, d_row, d_col)
-            ins = [t.clone().requires_grad_(True) for t in (x, d_row, d_col)]
-            gk = torch.autograd.grad(R.Rot3Function.apply(*ins), ins, w)
-            gr = torch.autograd.grad(R.rot3_reference(*ins), ins, w)
-            torch.cuda.synchronize()
-            fe = (y.float() - y_ref.float()).abs().max().item()
-            ge = [(a.float() - b.float()).abs().max().item() for a, b in zip(gk, gr)]
-            scale = [b.float().abs().max().item() for b in gr]
-            # forward and dx: the same f32 operations with no FMA contraction,
-            # so bit-equal is expected; the tolerance allows one ulp of the
-            # I/O type. d_row/d_col: sums of P products in another order.
-            ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
-            tol_y = ulp * y_ref.float().abs().max().item()
-            tol_x = ulp * scale[0]
-            tol_d = [1e-4 * max(1.0, s) for s in scale[1:]]
-            print(f"rot3 {str(dtype)[6:]:8s} {kind:8s} fwd max_abs_err {fe:.3e} (tol {tol_y:.1e}) "
-                  f"dx {ge[0]:.3e} (tol {tol_x:.1e}) d_row {ge[1]:.3e} (tol {tol_d[0]:.1e}) "
-                  f"d_col {ge[2]:.3e} (tol {tol_d[1]:.1e})")
-            check(fe <= tol_y, f"rot3 forward {dtype} {kind}")
-            check(ge[0] <= tol_x, f"rot3 backward dx {dtype} {kind}")
-            check(ge[1] <= tol_d[0] and ge[2] <= tol_d[1], f"rot3 backward deltas {dtype} {kind}")
-            err["fwd"] = max(err["fwd"], fe)
-            err["bwd"] = max(err["bwd"], *ge)
+    for shape in [SHAPE] + [(EDGE_B, p, p) for p in EDGE_P]:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind in ("rotation", "integer", "random"):
+                x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                w = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                d_row, d_col = _deltas(kind, gen, shape[0], shape[1])
+                fe, ge, scale = _rot3_errors(x, w, d_row, d_col)
+                # forward and dx: the same f32 operations with no FMA contraction,
+                # so bit-equal. d_row/d_col: sums of P products in another order.
+                tol_d = [1e-4 * max(1.0, s) for s in scale[1:]]
+                print(f"rot3 {list(shape)} {str(dtype)[6:]:8s} {kind:8s} fwd max_abs_err {fe:.3e}"
+                      f" (tol 0) dx {ge[0]:.3e} (tol 0) d_row {ge[1]:.3e} (tol {tol_d[0]:.1e})"
+                      f" d_col {ge[2]:.3e} (tol {tol_d[1]:.1e})")
+                what = f"{list(shape)} {dtype} {kind}"
+                check(fe == 0.0, f"rot3 forward {what}")
+                check(ge[0] == 0.0, f"rot3 backward dx {what}")
+                check(ge[1] <= tol_d[0] and ge[2] <= tol_d[1], f"rot3 backward deltas {what}")
+                err["fwd"] = max(err["fwd"], fe)
+                err["bwd"] = max(err["bwd"], *ge)
 
-    # times at the main path's dtype, with the shifts of real rotations (the
-    # kernels' reads depend on them); the random shifts are timed for the record
+    n, io, dl = B * P * P, 2, 4 * B * P  # bf16 I/O
+    bound = {
+        "fwd": max((2 * n * io + 2 * dl) / HBM_BYTES_PER_S, 12 * n / F32_FLOP_PER_S) * 1e3,
+        "bwd": max((3 * n * io + 4 * dl) / HBM_BYTES_PER_S, 29 * n / F32_FLOP_PER_S) * 1e3,
+    }
+    # times at the main path's dtype, for each cluster size that fits; the shifts
+    # of real rotations (the line's figures, last) and random shifts (the record)
     x = torch.randn(SHAPE, device=dev, generator=gen).bfloat16()
     g = torch.randn(SHAPE, device=dev, generator=gen).bfloat16()
     ms = {}
     for kind in ("random", "rotation"):
         d_row, d_col = _deltas(kind, gen, B, P)
+        for k, sizes in (("fwd", (2, 4, 8)), ("bwd", (4, 8))):
+            for size in sizes:
+                plan = R.launch_plan(P, k, size)
+                if plan.cluster != size:
+                    continue
+                fn = ((lambda: R._launch_fwd(x, d_row, d_col, size)) if k == "fwd" else
+                      (lambda: R._launch_bwd(x, d_row, d_col, g, True, size)))
+                t = median_ms(fn)
+                print(f"rot3_{k} bf16 {list(SHAPE)} {kind} shifts, cluster {size}: {t:.4f} ms, "
+                      f"{plan.smem} B shared memory per block, "
+                      f"{R.active_clusters(plan, k)} clusters resident, "
+                      f"{100 * bound[k] / t:.1f} % of bound")
+        plan = {k: R.launch_plan(P, k) for k in ("fwd", "bwd")}
         ms["fwd"] = median_ms(lambda: R._launch_fwd(x, d_row, d_col))
         ms["bwd"] = median_ms(lambda: R._launch_bwd(x, d_row, d_col, g))
-        print(f"rot3 kernels, bf16 {list(SHAPE)}, {kind} shifts: forward {ms['fwd']:.4f} ms,"
-              f" backward {ms['bwd']:.4f} ms")
-    ms["fwd_plain"] = median_ms(lambda: R.rot3_reference(x, d_row, d_col), reps=10)
+        ms["bwd_nodx"] = median_ms(lambda: R._launch_bwd(x, d_row, d_col, g, False))
+        print(f"rot3 kernels, bf16 {list(SHAPE)}, {kind} shifts, planned clusters "
+              f"{plan['fwd'].cluster} / {plan['bwd'].cluster}: forward {ms['fwd']:.4f} ms, "
+              f"backward {ms['bwd']:.4f} ms, backward without dx {ms['bwd_nodx']:.4f} ms")
+    ms["fwd_plain"] = median_ms(lambda: R.rot3_reference(x, d_row, d_col), reps=3)
     ins = [t.clone().requires_grad_(True) for t in (x, d_row, d_col)]
     y_ref = R.rot3_reference(*ins)
     ms["bwd_plain"] = median_ms(
-        lambda: torch.autograd.grad(y_ref, ins, g, retain_graph=True), reps=10)
+        lambda: torch.autograd.grad(y_ref, ins, g, retain_graph=True), reps=3)
 
-    n, io, dl = B * P * P, x.element_size(), 4 * B * P
-    bound = {
-        "fwd": max((2 * n * io + 2 * dl) / HBM_BYTES_PER_S, 12 * n / F32_FLOP_PER_S) * 1e3,
-        "bwd": max((3 * n * io + 4 * dl) / HBM_BYTES_PER_S, 29 * n / F32_FLOP_PER_S) * 1e3,
-    }
     for k in ("fwd", "bwd"):
+        p = R.launch_plan(P, k)
         print(f"rot3_{k} bf16 {list(SHAPE)}: kernel {ms[k]:.4f} ms, plain {ms[k + '_plain']:.4f} ms,"
-              f" bound {bound[k]:.4f} ms (bytes)")
+              f" bound {bound[k]:.4f} ms (bytes), {100 * bound[k] / ms[k]:.1f} % of bound; "
+              f"cluster {p.cluster}, {p.rows} rows and {p.smem} B shared memory per block")
     return err, ms, bound
 
 
@@ -243,9 +282,9 @@ def shear_kernel_phase():
             print(f"shear kernels, bf16 {list(SHAPE)}, axis {axis}, {kind} shifts: forward "
                   f"{ms['fwd']:.4f} ms, backward {ms['bwd']:.4f} ms")
     # the line's figures: axis 2 with the shifts of real rotations (the last pair)
-    ms["fwd_plain"] = median_ms(lambda: SH.fractional_shift_reference(x, delta, 2), reps=10)
+    ms["fwd_plain"] = median_ms(lambda: SH.fractional_shift_reference(x, delta, 2), reps=3)
     ms["bwd_plain"] = median_ms(
-        lambda: SH.fractional_shift_vjp_reference(x, delta, g, 2), reps=10)
+        lambda: SH.fractional_shift_vjp_reference(x, delta, g, 2), reps=3)
 
     n, io, dl = B * P * P, x.element_size(), 4 * B * P
     bound = {
@@ -482,9 +521,12 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s")
     for name, log in _build.BUILD_LOG.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
     err, ms, bound = kernel_phase()
     s_err, s_ms, s_bound = shear_kernel_phase()
@@ -521,6 +563,9 @@ def main() -> int:
          "plain_ms": plain, "bound_ms": b, "bound_by": "bytes", "library_ms": None}
         for name, src, replaces, path_launches, path, e, t, plain, b in entries
     ]
+    for k in kernels[:2]:  # the rot3 launch plan at the main path's canvas
+        plan = R.launch_plan(SHAPE[1], k["name"][5:])
+        k.update(cluster=plan.cluster, smem_per_block=plan.smem)
     check(all(k["launches"] > 0 for k in kernels), "a kernel of its path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

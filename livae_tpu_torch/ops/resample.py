@@ -172,11 +172,13 @@ def rotate_image_fast(
 
     backend (the JAX package's name in brackets):
       * "fused" (pallas): one rot3 over the canvas. It takes one channel and a
-        canvas of at most `rot3.MAX_P`; other shapes raise.
+        canvas of at most `rot3.MAX_P` (432: the kernels hold the canvas in a
+        thread-block cluster's shared memory); other shapes raise.
       * "shear" (xla): the channels fold into the batch, and three single
         shifts run on the f32 canvas (`fractional_shift`).
       * "auto": "fused" where it takes the shape, else "shear", chosen from the
-        shape before anything runs.
+        shape before anything runs. Larger canvases thus take the per-shear
+        path, as the JAX package sends canvases above its fused limit to XLA.
     In f32, and for bf16 input, the two give the same bits.
     """
     B, C, H, W = img.shape

@@ -9,7 +9,10 @@ once to the input dtype.
 * `rot3_reference` is the plain PyTorch version: direct index gathers, and its
   gradients come from autograd.
 * `Rot3Function` launches the hand-written CUDA kernels (ops/csrc/rot3.cu):
-  one forward launch, one fused backward launch giving dx, d d_row and d d_col.
+  one forward launch, one fused backward launch giving dx, d d_row and d d_col
+  (or only the deltas, where x needs no gradient). Each launches one
+  thread-block cluster per sample, with the f32 canvas in the cluster's shared
+  memory; `launch_plan` sizes the cluster.
 * `rot3` dispatches on the device: CPU tensors take the plain version, CUDA
   tensors the kernels; there is no fallback from one to the other.
 
@@ -20,18 +23,83 @@ that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 from .shear import lerp_shift
 
-__all__ = ["rot3", "rot3_reference", "Rot3Function", "MAX_P", "FWD_LAUNCHES", "BWD_LAUNCHES"]
+__all__ = [
+    "rot3", "rot3_reference", "Rot3Function", "MAX_P", "LaunchPlan", "launch_plan",
+    "active_clusters", "FWD_LAUNCHES", "BWD_LAUNCHES",
+]
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-MAX_P = 768  # the kernels' limit (ops/csrc/rot3.cu, kMaxP)
+# The kernels' limit (ops/csrc/rot3.cu, kMaxP): about the largest canvas whose
+# backward fits a cluster of 8 blocks. Larger canvases take the per-shear path.
+MAX_P = 432
+WARPS = 8  # per block (kWarps)
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on sm_90
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable cluster sizes
+# The cluster each kernel starts from, measured on the H100 by chip_smoke.py.
+PREFERRED_CLUSTER = {"fwd": 4, "bwd": 8}
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One cluster of `cluster` blocks per sample. Block r owns rows
+    [r * rows, min(P, (r + 1) * rows)) of every f32 intermediate, in `smem`
+    bytes of dynamic shared memory."""
+
+    P: int
+    cluster: int
+    rows: int
+    smem: int
+
+    @property
+    def bands(self) -> list[range]:
+        return [range(r * self.rows, min(self.P, (r + 1) * self.rows))
+                for r in range(self.cluster)]
+
+
+def _smem(P: int, rows: int, direction: str) -> int:
+    """Bytes per block (the layout in ops/csrc/rot3.cu): P row pointers, the
+    four shift tables, the band(s) and the per-warp row buffers; the backward
+    adds the second band (u), a second row buffer per warp, ddc's partial
+    and stage 3's ddr."""
+    if direction == "fwd":
+        return 8 * P + 4 * (4 * P + rows * P + WARPS * P)
+    return 8 * P + 4 * (5 * P + rows + 2 * rows * P + 2 * WARPS * P)
+
+
+def launch_plan(P: int, direction: str, cluster: int | None = None) -> LaunchPlan:
+    """The launch of the rot3 kernel `direction` ("fwd" or "bwd") at canvas P.
+
+    Starts from `cluster` (default PREFERRED_CLUSTER[direction]); halves it
+    while a block would own no row, and doubles it while a block's shared
+    memory would not fit. Raises ValueError for a canvas the kernels cannot take.
+    """
+    if direction not in PREFERRED_CLUSTER:
+        raise ValueError(f"rot3 launch direction must be fwd or bwd, got {direction!r}")
+    if not 2 <= P <= MAX_P:
+        raise ValueError(f"rot3 kernel canvas must be 2..{MAX_P}, got {P}")
+    n = PREFERRED_CLUSTER[direction] if cluster is None else cluster
+    if n not in CLUSTER_SIZES:
+        raise ValueError(f"rot3 cluster size must be one of {CLUSTER_SIZES}, got {n}")
+    while n > 1 and (n - 1) * math.ceil(P / n) >= P:
+        n //= 2
+    while _smem(P, math.ceil(P / n), direction) > SMEM_PER_BLOCK and n < CLUSTER_SIZES[-1]:
+        n *= 2
+    rows = math.ceil(P / n)
+    smem = _smem(P, rows, direction)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"rot3 {direction} at canvas {P} needs {smem} bytes of shared memory "
+                         f"per block")
+    return LaunchPlan(P, n, rows, smem)
 
 
 def rot3_reference(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> torch.Tensor:
@@ -51,10 +119,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rot3")
     if not _SIGNED:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.livae_rot3_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
+        n = ctypes.c_long
+        lib.livae_rot3_fwd.argtypes = [p, p, p, p, i, i, i, i, n, i, p]
         lib.livae_rot3_fwd.restype = i
-        lib.livae_rot3_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.livae_rot3_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, n, i, p]
         lib.livae_rot3_bwd.restype = i
+        lib.livae_rot3_active_clusters.argtypes = [i, i, i, n, ctypes.POINTER(i)]
+        lib.livae_rot3_active_clusters.restype = i
         _SIGNED = True
     return lib
 
@@ -67,8 +138,6 @@ def _check(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> tuple[i
     if x.dim() != 3 or x.shape[1] != x.shape[2]:
         raise ValueError(f"rot3 needs a square canvas [B, P, P], got {tuple(x.shape)}")
     B, P = x.shape[0], x.shape[1]
-    if not 2 <= P <= MAX_P:
-        raise ValueError(f"rot3 kernel canvas must be 2..{MAX_P}, got {P}")
     for name, d in (("d_row", d_row), ("d_col", d_col)):
         if d.shape != (B, P) or d.device != x.device:
             raise ValueError(f"{name} must be [{B}, {P}] on {x.device}, got "
@@ -76,52 +145,64 @@ def _check(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> tuple[i
     return B, P
 
 
-def _launch_fwd(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> torch.Tensor:
+def _launch_fwd(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor,
+                cluster: int | None = None) -> torch.Tensor:
     global FWD_LAUNCHES
     B, P = _check(x, d_row, d_col)
+    plan = launch_plan(P, "fwd", cluster)
     lib = _lib()
     x = x.contiguous()
     d_row = d_row.float().contiguous()
     d_col = d_col.float().contiguous()
     out = torch.empty_like(x)
-    scratch = torch.empty((B, P, P), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.livae_rot3_fwd(
-            x.data_ptr(), d_row.data_ptr(), d_col.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, P, int(x.dtype == torch.bfloat16), stream,
+            x.data_ptr(), d_row.data_ptr(), d_col.data_ptr(), out.data_ptr(), B, P,
+            plan.cluster, plan.rows, plan.smem, int(x.dtype == torch.bfloat16), stream,
         )
     if err != 0:
-        raise RuntimeError(f"rot3 forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"rot3 forward kernel launch failed: CUDA error {err} ({plan})")
     FWD_LAUNCHES += 1
     return out
 
 
-def _launch_bwd(x, d_row, d_col, g):
+def _launch_bwd(x, d_row, d_col, g, with_dx: bool = True, cluster: int | None = None):
+    """(dx or None, d d_row, d d_col); with_dx=False launches the dx-free variant."""
     global BWD_LAUNCHES
     B, P = _check(x, d_row, d_col)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("rot3 backward: the cotangent must match x in shape, dtype and device")
+    plan = launch_plan(P, "bwd", cluster)
     lib = _lib()
     x = x.contiguous()
     g = g.contiguous()
     d_row = d_row.float().contiguous()
     d_col = d_col.float().contiguous()
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if with_dx else None
     ddr = torch.empty((B, P), dtype=torch.float32, device=x.device)
     ddc = torch.empty((B, P), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((3, B, P, P), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.livae_rot3_bwd(
             x.data_ptr(), d_row.data_ptr(), d_col.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), ddr.data_ptr(), ddc.data_ptr(), scratch.data_ptr(),
-            B, P, int(x.dtype == torch.bfloat16), stream,
+            dx.data_ptr() if with_dx else None, ddr.data_ptr(), ddc.data_ptr(),
+            B, P, plan.cluster, plan.rows, plan.smem, int(x.dtype == torch.bfloat16), stream,
         )
     if err != 0:
-        raise RuntimeError(f"rot3 backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"rot3 backward kernel launch failed: CUDA error {err} ({plan})")
     BWD_LAUNCHES += 1
     return dx, ddr, ddc
+
+
+def active_clusters(plan: LaunchPlan, direction: str) -> int:
+    """How many clusters of the bf16 kernel fit on the current card at once."""
+    out = ctypes.c_int(0)
+    err = _lib().livae_rot3_active_clusters(int(direction == "bwd"), plan.P, plan.cluster, plan.smem,
+                                            ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"rot3 occupancy query failed: CUDA error {err} ({plan})")
+    return out.value
 
 
 class Rot3Function(torch.autograd.Function):
@@ -135,7 +216,9 @@ class Rot3Function(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, d_row, d_col = ctx.saved_tensors
-        dx, ddr, ddc = _launch_bwd(x, d_row, d_col, g)
+        # where x needs no gradient (the STN's rotation of the data patch), the
+        # dx-free variant skips dx's lerp and store; the deltas keep their bits
+        dx, ddr, ddc = _launch_bwd(x, d_row, d_col, g, with_dx=ctx.needs_input_grad[0])
         return dx, ddr.to(d_row.dtype), ddc.to(d_col.dtype)
 
 

@@ -33,12 +33,14 @@ def _nhwc(t):
 
 @pytest.mark.parametrize(
     "shape,padding_mode",
-    [((2, 3, 32, 32), "zeros"), ((2, 3, 32, 32), "reflection"), ((1, 1, 640, 640), "reflection")],
-    ids=["C3-zeros", "C3-reflection", "S640-canvas1024"],
+    [((2, 3, 32, 32), "zeros"), ((2, 3, 32, 32), "reflection"), ((1, 1, 640, 640), "reflection"),
+     ((1, 1, 320, 320), "reflection")],
+    ids=["C3-zeros", "C3-reflection", "S640-canvas1024", "S320-canvas512"],
 )
 def test_rotate_image_fast_rotates_what_jax_rotates(rng, shape, padding_mode):
-    """C = 3 and a 1024 canvas (S = 640) take the per-shear path. 1e-6: both
-    sides run the same f32 lerps in the same order."""
+    """C = 3 and canvases above rot3.MAX_P (512 for S = 320, 1024 for S = 640)
+    take the per-shear path. 1e-6: both sides run the same f32 lerps in the
+    same order."""
     B, C, S, _ = shape
     img = rng.random((B, S, S, C)).astype(np.float32)
     th = THETAS[:B]
@@ -85,7 +87,8 @@ def test_shear_backend_bit_equal_to_fused(rng, dtype):
                                rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 32, 32), (1, 1, 640, 640)], ids=["C3", "canvas1024"])
+@pytest.mark.parametrize("shape", [(2, 3, 32, 32), (1, 1, 640, 640), (1, 1, 320, 320)],
+                         ids=["C3", "canvas1024", "canvas512"])
 def test_fused_backend_refuses_what_rot3_cannot_take(shape):
     with pytest.raises(ValueError, match="fused"):
         tr.rotate_image_fast(torch.zeros(shape), torch.zeros(shape[0]), backend="fused")

@@ -3,7 +3,9 @@
 The port's plain version (`rot3_reference`, what `rot3` runs on a CPU tensor)
 is held against the Pallas kernel in interpret mode and the XLA 3-shear path:
 values at f32, bf16 I/O, and gradients against jax.grad. The CUDA kernels
-are held against this plain version on the card by chip_smoke.py.
+are held against this plain version on the card by chip_smoke.py; their
+launch plan (cluster size, bands of rows, shared memory) is plain Python and
+is checked here.
 """
 
 import jax
@@ -14,7 +16,7 @@ import torch
 
 from livae_tpu.ops.pallas.rot3 import rot3_pallas
 from livae_tpu.ops.resample import _fractional_shift
-from livae_tpu_torch.ops.rot3 import rot3, rot3_reference
+from livae_tpu_torch.ops.rot3 import MAX_P, launch_plan, rot3, rot3_reference
 
 
 def _xla_rot3(x, d_row, d_col):
@@ -86,3 +88,28 @@ def test_gradients_match_jax_grad(case, rng, kind):
     np.testing.assert_allclose(gt[0].numpy(), np.asarray(gj[0]), atol=1e-5)
     np.testing.assert_allclose(gt[1].numpy(), np.asarray(gj[1]), atol=1e-3)
     np.testing.assert_allclose(gt[2].numpy(), np.asarray(gj[2]), atol=1e-3)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("P", [2, 3, 33, 130, 256, 384, MAX_P])
+def test_launch_plan_covers_the_canvas(P, direction):
+    """The cluster's bands cover rows 0..P-1 once each, none empty; the cluster
+    is a portable size; a block's shared memory fits sm_90's 232,448 bytes."""
+    plan = launch_plan(P, direction)
+    assert plan.cluster in (1, 2, 4, 8)
+    assert [r for band in plan.bands for r in band] == list(range(P))
+    assert all(len(band) > 0 for band in plan.bands)
+    assert 0 < plan.smem <= 232_448
+    with pytest.raises(ValueError, match="canvas"):
+        launch_plan(MAX_P + 1, direction)
+
+
+def test_launch_plan_main_path_clusters():
+    """The main path's canvas (256): clusters of 4 for the forward and 8 for
+    the backward, as measured; an explicit size is kept where it fits."""
+    assert launch_plan(256, "fwd").cluster == 4
+    assert launch_plan(256, "bwd").cluster == 8
+    assert launch_plan(256, "fwd", 8).cluster == 8
+    assert launch_plan(256, "bwd", 1).cluster == 4  # the smallest cluster that holds the bands
+    with pytest.raises(ValueError, match="cluster"):
+        launch_plan(256, "fwd", 3)
