@@ -16,7 +16,11 @@ Run from the repository root:  python3 chip_smoke.py
    * shear (kernel C), along both axes: the forward against
      `fractional_shift_reference` (bit-equal), the fused backward against
      `fractional_shift_vjp_reference` (dx bit-equal) and against autograd
-     through the plain version.
+     through the plain version, also at edge shapes [3, P, P] for P in 2, 33,
+     130, 255, 432, 640 and 1024 and [3, 33, 130]; the dx-free backward gives
+     d delta's bits; times in f32 and bf16 on both axes under rotation and
+     random shifts, with the launch plan, blocks per SM, share of the bound
+     and a copy_ of the same bytes beside each.
 4. Agreement phase: the f32 model on the card (kernels) against the same
    weights on the CPU (plain versions, which tests/test_torch_*.py hold
    against the JAX package) on a small batch.
@@ -27,7 +31,8 @@ Run from the repository root:  python3 chip_smoke.py
    encode. Every train step must launch the rot3 forward 3 times, its
    backward twice, and no shear kernel.
 6. Rotation paths: `rotate_image_fast(backend="shear")` against "fused" on
-   [512, 1, 128, 128] (canvas 256) in f32 and bf16; a [64, 3, 128, 128]
+   [512, 1, 128, 128] (canvas 256) in f32 and bf16, and both backends timed
+   in f32, forward and forward+backward; a [64, 3, 128, 128]
    rotation under "auto" (kernel C, not rot3); three fused paired train steps
    of `RVAE(fast_resample=False)` at batch 512 in bf16 (rot3 only for the
    augmentation); `python -m livae_tpu_torch.bench_rotate --reps 3`.
@@ -35,7 +40,9 @@ Around each driven path the launch counters are zeroed just before and read
 just after. The build step prints each kernel's registers and spills (ptxas);
 the rot3 phase prints each cluster size's time, shared memory per block,
 resident clusters and share of the bound. Then it prints one
-{"kernels": [...]} line and, last, the
+{"kernels": [...]} line (kernel C's figures are f32 along axis 2 with the
+shifts of real rotations, the per-shear path's case; "cases" holds the
+others) and, last, the
 {"ok": true, "device": {...}} line.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -225,76 +232,130 @@ def kernel_phase():
     return err, ms, bound
 
 
+SHEAR_EDGE = [(EDGE_B, p, p) for p in (2, 33, 130, 255, R.MAX_P, 640, 1024)] + [(EDGE_B, 33, 130)]
+
+
+def _shear_errors(x, g, delta, axis):
+    """Kernel C against the plain versions on one input: (forward, dx, d delta,
+    dx against autograd, d delta against autograd) errors and the tolerances
+    of the last three. Also checks that the dx-free backward gives d delta's
+    bits."""
+    ulp = 2.0**-7 if x.dtype == torch.bfloat16 else 2.0**-23
+    ins = [t.clone().requires_grad_(True) for t in (x, delta)]
+    y = SH.FractionalShiftFunction.apply(*ins, axis)
+    dx, dd = torch.autograd.grad(y, ins, g)
+    y_ref = SH.fractional_shift_reference(x, delta, axis)
+    dx_v, dd_v = SH.fractional_shift_vjp_reference(x, delta, g, axis)
+    dx_a, dd_a = torch.autograd.grad(SH.fractional_shift_reference(*ins, axis), ins, g)
+    _, dd_free = SH._launch_bwd(x, delta, g, axis, with_dx=False)
+    torch.cuda.synchronize()
+    check(torch.equal(dd_free, dd), f"dx-free shear backward changes d delta at "
+                                    f"{list(x.shape)} {x.dtype} axis {axis}")
+    e = {"fwd": (y.float() - y_ref.float()).abs().max().item(),
+         "dx": (dx.float() - dx_v.float()).abs().max().item(),
+         "dd": (dd - dd_v).abs().max().item(),
+         "dx_a": (dx.float() - dx_a.float()).abs().max().item(),
+         "dd_a": (dd - dd_a).abs().max().item()}
+    # forward and dx: the same f32 operations with no FMA contraction, so
+    # bit-equal. dx against autograd: the -delta shift rounds 1 - f once more
+    # where |delta| < 1, a few ulps of g. d delta: sums of n products in another
+    # order. Autograd's d delta does not round g1 - g0 to bf16 as the JAX formula
+    # does, so it is held only in f32.
+    tol = {"dx_a": 4 * ulp * g.float().abs().max().item(),
+           "dd": 1e-4 * max(1.0, dd_v.abs().max().item())}
+    return e, tol
+
+
+def _shear_bound_ms(shape, axis, elem, direction):
+    """Least time at 3.35 TB/s: x (and g) read once, out (dx) written once, the
+    deltas read (and d delta written) once; the ~4-7 FLOP per element are far
+    below the f32 rate."""
+    B, H, W = shape
+    n, dl = B * H * W, 4 * B * (H if axis == 2 else W)
+    byts = {"fwd": 2 * n * elem + dl, "bwd": 3 * n * elem + 2 * dl,
+            "bwd_nodx": 2 * n * elem + 2 * dl}[direction]
+    ops = {"fwd": 4, "bwd": 7, "bwd_nodx": 4}[direction] * n
+    return max(byts / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S) * 1e3
+
+
 def shear_kernel_phase():
-    """Hold kernel C's forward and fused backward against the plain versions
-    along both axes; time them at bf16 with the shifts of real rotations."""
+    """Hold kernel C's forward and fused backward against the plain versions on
+    both axes, in bf16 and f32, at the main shape and at SHEAR_EDGE; time them
+    at the main shape under the shifts of real rotations and random shifts."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, P, _ = SHAPE
     err = {"fwd": 0.0, "bwd": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
+    for shape in [SHAPE] + SHEAR_EDGE:
+        B, H, W = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            for axis in (2, 1):
+                plans = [SH.launch_plan(*shape, axis, k, dtype) for k in ("fwd", "bwd")]
+                for kind in ("rotation", "integer", "random"):
+                    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                    g = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                    delta = (_deltas(kind, gen, B, H)[0] if axis == 2 else
+                             _deltas(kind, gen, B, W)[1])
+                    e, tol = _shear_errors(x, g, delta, axis)
+                    print(f"shear {list(shape)} {str(dtype)[6:]:8s} axis {axis} {kind:8s} "
+                          f"fwd {e['fwd']:.3e} (tol 0) dx {e['dx']:.3e} (tol 0) "
+                          f"dx-autograd {e['dx_a']:.3e} (tol {tol['dx_a']:.1e}) "
+                          f"d_delta {e['dd']:.3e} (tol {tol['dd']:.1e}) "
+                          f"d_delta-autograd {e['dd_a']:.3e}; plans "
+                          + " / ".join(f"{p.variant} {p.tile} {p.smem} B" for p in plans))
+                    what = f"{list(shape)} {dtype} axis {axis} {kind}"
+                    check(e["fwd"] == 0.0, f"shear forward {what}")
+                    check(e["dx"] == 0.0, f"shear backward dx {what}")
+                    check(e["dx_a"] <= tol["dx_a"], f"shear backward dx vs autograd {what}")
+                    check(e["dd"] <= tol["dd"], f"shear backward d_delta {what}")
+                    if dtype == torch.float32:
+                        check(e["dd_a"] <= tol["dd"], f"shear d_delta vs autograd {what}")
+                    err["fwd"] = max(err["fwd"], e["fwd"])
+                    err["bwd"] = max(err["bwd"], e["dx"], e["dd"])
+
+    # times at the main shape, beside a copy_ of the same bytes
+    B, P, _ = SHAPE
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
+        g = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
+        flat = torch.empty(3 * x.numel() // 2, device=dev, dtype=dtype)
+        y, yflat = torch.empty_like(x), torch.empty_like(flat)
+        copy = {"fwd": median_ms(lambda: y.copy_(x)),
+                "bwd": median_ms(lambda: yflat.copy_(flat))}
+        name = str(dtype)[6:]
+        print(f"copy_ {name}: {x.numel() * x.element_size() / 2**20:.0f} MiB each way "
+              f"{copy['fwd']:.4f} ms, 1.5x that {copy['bwd']:.4f} ms")
         for axis in (2, 1):
-            for kind in ("rotation", "integer", "random"):
-                x = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
-                g = torch.randn(SHAPE, device=dev, generator=gen).to(dtype)
+            for kind in ("rotation", "random"):
                 d_row, d_col = _deltas(kind, gen, B, P)
                 delta = d_row if axis == 2 else d_col
-                ins = [t.clone().requires_grad_(True) for t in (x, delta)]
-                y = SH.FractionalShiftFunction.apply(*ins, axis)
-                dx, dd = torch.autograd.grad(y, ins, g)
-                y_ref = SH.fractional_shift_reference(x, delta, axis)
-                dx_v, dd_v = SH.fractional_shift_vjp_reference(x, delta, g, axis)
-                dx_a, dd_a = torch.autograd.grad(SH.fractional_shift_reference(*ins, axis), ins, g)
-                torch.cuda.synchronize()
-                fe = (y.float() - y_ref.float()).abs().max().item()
-                xe = (dx.float() - dx_v.float()).abs().max().item()
-                xa = (dx.float() - dx_a.float()).abs().max().item()
-                de = (dd - dd_v).abs().max().item()
-                da = (dd - dd_a).abs().max().item()
-                # forward and dx: the same f32 operations with no FMA contraction,
-                # so bit-equal. dx against autograd: the -delta shift rounds 1 - f
-                # once more where |delta| < 1, a few ulps of g. d delta: sums of P
-                # products in another order. Autograd's d delta does not round
-                # g1 - g0 to bf16 as the JAX formula does, so it is held only in f32.
-                tol_a = 4 * ulp * g.float().abs().max().item()
-                tol_d = 1e-4 * max(1.0, dd_v.abs().max().item())
-                print(f"shear {str(dtype)[6:]:8s} axis {axis} {kind:8s} fwd {fe:.3e} (tol 0) "
-                      f"dx {xe:.3e} (tol 0) dx-autograd {xa:.3e} (tol {tol_a:.1e}) "
-                      f"d_delta {de:.3e} (tol {tol_d:.1e}) d_delta-autograd {da:.3e}")
-                check(fe == 0.0, f"shear forward {dtype} axis {axis} {kind}")
-                check(xe == 0.0, f"shear backward dx {dtype} axis {axis} {kind}")
-                check(xa <= tol_a, f"shear backward dx vs autograd {dtype} axis {axis} {kind}")
-                check(de <= tol_d, f"shear backward d_delta {dtype} axis {axis} {kind}")
-                if dtype == torch.float32:
-                    check(da <= tol_d, f"shear d_delta vs autograd axis {axis} {kind}")
-                err["fwd"] = max(err["fwd"], fe)
-                err["bwd"] = max(err["bwd"], xe, de)
-
-    x = torch.randn(SHAPE, device=dev, generator=gen).bfloat16()
-    g = torch.randn(SHAPE, device=dev, generator=gen).bfloat16()
-    ms = {}
-    for kind in ("random", "rotation"):
-        d_row, d_col = _deltas(kind, gen, B, P)
-        for axis, delta in ((1, d_col), (2, d_row)):
-            ms["fwd"] = median_ms(lambda: SH._launch_fwd(x, delta, axis))
-            ms["bwd"] = median_ms(lambda: SH._launch_bwd(x, delta, g, axis))
-            print(f"shear kernels, bf16 {list(SHAPE)}, axis {axis}, {kind} shifts: forward "
-                  f"{ms['fwd']:.4f} ms, backward {ms['bwd']:.4f} ms")
-    # the line's figures: axis 2 with the shifts of real rotations (the last pair)
-    ms["fwd_plain"] = median_ms(lambda: SH.fractional_shift_reference(x, delta, 2), reps=3)
-    ms["bwd_plain"] = median_ms(
-        lambda: SH.fractional_shift_vjp_reference(x, delta, g, 2), reps=3)
-
-    n, io, dl = B * P * P, x.element_size(), 4 * B * P
-    bound = {
-        "fwd": max((2 * n * io + dl) / HBM_BYTES_PER_S, 4 * n / F32_FLOP_PER_S) * 1e3,
-        "bwd": max((3 * n * io + 2 * dl) / HBM_BYTES_PER_S, 7 * n / F32_FLOP_PER_S) * 1e3,
-    }
+                t = {"fwd": median_ms(lambda: SH._launch_fwd(x, delta, axis)),
+                     "bwd": median_ms(lambda: SH._launch_bwd(x, delta, g, axis)),
+                     "bwd_nodx": median_ms(lambda: SH._launch_bwd(x, delta, g, axis, False))}
+                for k, k_ms in t.items():
+                    plan = SH.launch_plan(*SHAPE, axis, k[:3], dtype)
+                    b = _shear_bound_ms(SHAPE, axis, x.element_size(), k)
+                    c = copy["fwd" if k != "bwd" else "bwd"]
+                    cases[f"{k} {name} axis {axis} {kind}"] = {
+                        "ms": k_ms, "bound_ms": b, "copy_ms": c,
+                        "plan": f"{plan.variant} {plan.tile}"}
+                    print(f"shear_{k} {name} {list(SHAPE)} axis {axis} {kind} shifts: "
+                          f"{k_ms:.4f} ms, bound {b:.4f} ms, {100 * b / k_ms:.1f} % of bound, "
+                          f"copy_ {c:.4f} ms; {plan.variant} tile {plan.tile}, {plan.smem} B, "
+                          f"{SH.blocks_per_sm(plan, dtype)} blocks per SM")
+        if dtype == torch.float32:  # the line's figures: f32 (the per-shear path), axis 2
+            delta = _deltas("rotation", gen, B, P)[0]
+            ms = {"fwd": median_ms(lambda: SH._launch_fwd(x, delta, 2)),
+                  "bwd": median_ms(lambda: SH._launch_bwd(x, delta, g, 2)),
+                  "fwd_plain": median_ms(lambda: SH.fractional_shift_reference(x, delta, 2),
+                                         reps=3),
+                  "bwd_plain": median_ms(
+                      lambda: SH.fractional_shift_vjp_reference(x, delta, g, 2), reps=3)}
+    bound = {k: _shear_bound_ms(SHAPE, 2, 4, k) for k in ("fwd", "bwd")}
     for k in ("fwd", "bwd"):
-        print(f"shear_{k} bf16 {list(SHAPE)} axis 2: kernel {ms[k]:.4f} ms, plain "
-              f"{ms[k + '_plain']:.4f} ms, bound {bound[k]:.4f} ms (bytes)")
-    return err, ms, bound
+        print(f"shear_{k} float32 {list(SHAPE)} axis 2 rotation shifts: kernel {ms[k]:.4f} ms, "
+              f"plain {ms[k + '_plain']:.4f} ms, bound {bound[k]:.4f} ms (bytes)")
+    return err, ms, bound, cases
 
 
 def agreement_phase():
@@ -438,6 +499,15 @@ def rotation_path_phase():
               f"fused max_abs_err {fe:.3e} (tol 0), d theta {ge:.3e} (tol {tol_g:.1e})")
         check(fe == 0.0, f"per-shear rotation differs from the fused rot3 in {dtype}")
         check(ge <= tol_g, f"per-shear rotation d theta differs from the fused rot3 in {dtype}")
+        if dtype == torch.float32:  # times of both backends (not counted as the path's run)
+            for backend in ("fused", "shear"):
+                t = th.clone().requires_grad_(True)
+                fwd = median_ms(lambda: rotate_image_fast(img, th, "reflection", margin=margin,
+                                                          backend=backend))
+                both = median_ms(lambda: torch.autograd.grad(rotate_image_fast(
+                    img, t, "reflection", margin=margin, backend=backend).square().sum(), t))
+                print(f"rotation f32 [{B}, 1, {S}, {S}] canvas {S + 2 * margin} {backend}: "
+                      f"forward {fwd:.4f} ms, forward+backward (d theta) {both:.4f} ms")
 
     # three channels take the per-shear path under "auto"; the result agrees with
     # the CPU port (which the tests hold against the JAX package) up to the last
@@ -529,7 +599,7 @@ def main() -> int:
                 print(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
     err, ms, bound = kernel_phase()
-    s_err, s_ms, s_bound = shear_kernel_phase()
+    s_err, s_ms, s_bound, s_cases = shear_kernel_phase()
     agreement_phase()
     ds, build_s = bench_dataset()
     main = main_path(ds, build_s)
@@ -566,6 +636,10 @@ def main() -> int:
     for k in kernels[:2]:  # the rot3 launch plan at the main path's canvas
         plan = R.launch_plan(SHAPE[1], k["name"][5:])
         k.update(cluster=plan.cluster, smem_per_block=plan.smem)
+    for k in kernels[2:]:  # kernel C: f32 axis 2 above; every timed case beside it
+        d = k["name"][6:]
+        k.update(dtype="float32", axis=2, shifts="rotation", cases={
+            case: v for case, v in s_cases.items() if case.split()[0] in (d, d + "_nodx")})
     check(all(k["launches"] > 0 for k in kernels), "a kernel of its path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

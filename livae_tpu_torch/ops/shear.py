@@ -14,7 +14,9 @@ per-shear path of ops.resample.rotate_image_fast).
   VJP formula (shear.py:124-137) in plain PyTorch.
 * `FractionalShiftFunction` launches the hand-written CUDA kernels
   (ops/csrc/shear.cu): one forward launch, and one fused backward launch
-  giving dx (by the VJP formula) and d delta.
+  giving dx (by the VJP formula) and d delta, or only d delta where x needs
+  no gradient. Each block stages one tile in shared memory; `launch_plan`
+  sizes the tiles.
 * `fractional_shift` dispatches on the device: CPU tensors take the plain
   version, CUDA tensors the kernels; there is no fallback from one to the
   other.
@@ -26,6 +28,7 @@ that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -37,12 +40,118 @@ __all__ = [
     "fractional_shift_vjp_reference",
     "FractionalShiftFunction",
     "lerp_shift",
+    "ShearPlan",
+    "launch_plan",
+    "blocks_per_sm",
     "FWD_LAUNCHES",
     "BWD_LAUNCHES",
 ]
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+THREADS = 256  # per block (kThreads in ops/csrc/shear.cu)
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on sm_90
+# The tile sizes, measured on the H100 (PERF.md, section 6): axis 2 stages about
+# ROW_TILE_BYTES of x's rows per block; axis 1 the widest strip of
+# STRIP_COLUMNS whose strips (x's, and g's in the backward) stay within
+# STRIP_BYTES, which keeps three blocks on an SM.
+ROW_TILE_BYTES = 16 * 1024
+STRIP_BYTES = 64 * 1024
+STRIP_COLUMNS = (64, 32, 16, 8)
+
+
+@dataclass(frozen=True)
+class ShearPlan:
+    """The launch of a kernel C instance on x [B, H, W]: one block per tile.
+
+    variant "tiled": axis 2 stages `tile` consecutive rows of the flattened
+    [B H, W] array per block, axis 1 a strip of `tile` columns by all H rows
+    of one sample; x's tile (and g's in the backward) take `smem` bytes of
+    shared memory. variant "direct": the tile does not fit one block, and the
+    kernel gathers in device memory (tile and smem 0).
+    """
+
+    B: int
+    H: int
+    W: int
+    axis: int
+    direction: str
+    variant: str
+    tile: int
+    smem: int
+
+    def tiles(self) -> list:
+        """What each block's tile covers, in block order: axis 2 a range of
+        flat rows b * H + y; axis 1 (b, range of columns). The direct variant:
+        one row (axis 2) or one column (axis 1, as (b, range(c, c + 1))) each."""
+        B, H, W = self.B, self.H, self.W
+        if self.axis == 2:
+            R = self.tile or 1
+            return [range(r, min(B * H, r + R)) for r in range(0, B * H, R)]
+        w = self.tile or 1
+        return [(b, range(c, min(W, c + w))) for b in range(B) for c in range(0, W, w)]
+
+
+def _tile_bytes(axis: int, H: int, W: int, tile: int, elem: int) -> int:
+    """One staged tile of one tensor (tile_bytes in ops/csrc/shear.cu): axis 2
+    `tile` rows plus 16 bytes for the span's misalignment, axis 1 [H][tile];
+    rounded up to 16 bytes."""
+    n = (tile * W + 16 // elem) * elem if axis == 2 else H * tile * elem
+    return -(-n // 16) * 16
+
+
+def _tensors(direction: str) -> int:
+    """Tensors a kernel stages: x, and g in the backward."""
+    return 1 if direction == "fwd" else 2
+
+
+def _smem(axis: int, direction: str, H: int, W: int, tile: int, elem: int) -> int:
+    """Bytes per block: x's tile (and g's in the backward), and for the axis-1
+    backward one f32 partial of d delta per thread."""
+    tensors = _tensors(direction)
+    extra = 4 * THREADS if (axis == 1 and direction == "bwd") else 0
+    return tensors * _tile_bytes(axis, H, W, tile, elem) + extra
+
+
+def launch_plan(B: int, H: int, W: int, axis: int, direction: str, dtype: torch.dtype,
+                tile: int | None = None) -> ShearPlan:
+    """The launch of kernel C `direction` ("fwd" or "bwd") along `axis` on x
+    [B, H, W] of `dtype` (float32 or bfloat16).
+
+    axis 2 stages about ROW_TILE_BYTES of rows per block, at least one row;
+    axis 1 the widest strip of STRIP_COLUMNS whose strips of x (and g) take
+    at most STRIP_BYTES, or the narrowest. A tile that does not fit one
+    block's shared memory takes the direct variant. `tile` picks a tiled plan
+    by hand (rows, or a power of two from 8 to THREADS columns); ValueError
+    if it does not fit.
+    """
+    if axis not in (1, 2):
+        raise ValueError(f"kernel C shifts along axis 1 or 2, got {axis}")
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"kernel C direction must be fwd or bwd, got {direction!r}")
+    if min(B, H, W) < 1:
+        raise ValueError(f"kernel C needs a non-empty [B, H, W], got {[B, H, W]}")
+    elem = {torch.float32: 4, torch.bfloat16: 2}[dtype]
+    if tile is not None:
+        if axis == 2:
+            ok = 1 <= tile <= B * H
+        else:
+            ok = 8 <= tile <= THREADS and not tile & (tile - 1)
+        smem = _smem(axis, direction, H, W, tile, elem) if ok else 0
+        if not ok or smem > SMEM_PER_BLOCK:
+            raise ValueError(f"kernel C {direction} axis {axis} on {[B, H, W]} {dtype}: tile "
+                             f"{tile} is not a tile the kernels take within {SMEM_PER_BLOCK} B")
+        return ShearPlan(B, H, W, axis, direction, "tiled", tile, smem)
+    if axis == 2:
+        tile = min(B * H, max(1, ROW_TILE_BYTES // (W * elem)))
+    else:
+        fit = [w for w in STRIP_COLUMNS if _tensors(direction) * H * w * elem <= STRIP_BYTES]
+        tile = fit[0] if fit else STRIP_COLUMNS[-1]
+    smem = _smem(axis, direction, H, W, tile, elem)
+    if smem > SMEM_PER_BLOCK:
+        return ShearPlan(B, H, W, axis, direction, "direct", 0, 0)
+    return ShearPlan(B, H, W, axis, direction, "tiled", tile, smem)
 
 
 def lerp_shift(v: torch.Tensor, delta: torch.Tensor, dim: int) -> torch.Tensor:
@@ -108,11 +217,13 @@ def _lib() -> ctypes.CDLL:
     global _SIGNED
     lib = _build.load("shear")
     if not _SIGNED:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.livae_shear_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
+        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.livae_shear_fwd.argtypes = [p, p, p, i, i, i, i, i, i, n, p]
         lib.livae_shear_fwd.restype = i
-        lib.livae_shear_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.livae_shear_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, n, p]
         lib.livae_shear_bwd.restype = i
+        lib.livae_shear_blocks_per_sm.argtypes = [i, i, i, n, ctypes.POINTER(i)]
+        lib.livae_shear_blocks_per_sm.restype = i
         _SIGNED = True
     return lib
 
@@ -125,9 +236,11 @@ def _check(x: torch.Tensor, delta: torch.Tensor, axis: int) -> tuple[int, int, i
     return _check_shapes(x, delta, axis)
 
 
-def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int) -> torch.Tensor:
+def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int,
+                plan: ShearPlan | None = None) -> torch.Tensor:
     global FWD_LAUNCHES
     B, H, W = _check(x, delta, axis)
+    plan = plan or launch_plan(B, H, W, axis, "fwd", x.dtype)
     lib = _lib()
     x = x.contiguous()
     delta = delta.float().contiguous()
@@ -135,33 +248,49 @@ def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int) -> torch.Tensor
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.livae_shear_fwd(x.data_ptr(), delta.data_ptr(), out.data_ptr(), B, H, W,
-                                  axis, int(x.dtype == torch.bfloat16), stream)
+                                  axis, int(x.dtype == torch.bfloat16), plan.tile, plan.smem,
+                                  stream)
     if err != 0:
-        raise RuntimeError(f"shear forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"shear forward kernel launch failed: CUDA error {err} ({plan})")
     FWD_LAUNCHES += 1
     return out
 
 
-def _launch_bwd(x: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, axis: int):
+def _launch_bwd(x: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, axis: int,
+                with_dx: bool = True, plan: ShearPlan | None = None):
+    """(dx or None, d delta); with_dx=False launches the dx-free variant."""
     global BWD_LAUNCHES
     B, H, W = _check(x, delta, axis)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("shear backward: the cotangent must match x in shape, dtype and device")
+    plan = plan or launch_plan(B, H, W, axis, "bwd", x.dtype)
     lib = _lib()
     x = x.contiguous()
     g = g.contiguous()
     delta = delta.float().contiguous()
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if with_dx else None
     ddelta = torch.empty_like(delta)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.livae_shear_bwd(x.data_ptr(), delta.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                                  ddelta.data_ptr(), B, H, W, axis,
-                                  int(x.dtype == torch.bfloat16), stream)
+        err = lib.livae_shear_bwd(x.data_ptr(), delta.data_ptr(), g.data_ptr(),
+                                  dx.data_ptr() if with_dx else None, ddelta.data_ptr(),
+                                  B, H, W, axis, int(x.dtype == torch.bfloat16), plan.tile,
+                                  plan.smem, stream)
     if err != 0:
-        raise RuntimeError(f"shear backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"shear backward kernel launch failed: CUDA error {err} ({plan})")
     BWD_LAUNCHES += 1
     return dx, ddelta
+
+
+def blocks_per_sm(plan: ShearPlan, dtype: torch.dtype) -> int:
+    """How many blocks of the tiled kernel of `plan` fit one SM of the current card."""
+    out = ctypes.c_int(0)
+    err = _lib().livae_shear_blocks_per_sm(plan.axis, int(plan.direction == "bwd"),
+                                           int(dtype == torch.bfloat16), plan.smem,
+                                           ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"shear occupancy query failed: CUDA error {err} ({plan})")
+    return out.value
 
 
 class FractionalShiftFunction(torch.autograd.Function):
@@ -176,7 +305,9 @@ class FractionalShiftFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, delta = ctx.saved_tensors
-        dx, ddelta = _launch_bwd(x, delta, g, ctx.axis)
+        # where x needs no gradient (the first shift of the per-shear rotation,
+        # on the data), the dx-free variant skips dx; d delta keeps its bits
+        dx, ddelta = _launch_bwd(x, delta, g, ctx.axis, with_dx=ctx.needs_input_grad[0])
         return dx, ddelta.to(delta.dtype), None
 
 

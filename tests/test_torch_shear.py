@@ -147,3 +147,109 @@ def test_shapes_are_checked(bad):
         args = (x[0], delta, 2)
     with pytest.raises(ValueError):
         S.fractional_shift(*args)
+
+
+# --- kernel C's launch plan (plain Python) and the dx-free flag -------------------
+
+from livae_tpu_torch.ops import resample as RS  # noqa: E402
+
+_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# chip_smoke.py's edge shapes for kernel C, and the per-shear rotation's canvas
+PLAN_SHAPES = [(3, p, p) for p in (2, 33, 130, 255, 432, 640, 1024)] + [(3, 33, 130),
+                                                                       (512, 256, 256)]
+
+
+def _covered(plan):
+    """Every (row) or (sample, column) a plan's tiles cover, in order."""
+    if plan.axis == 2:
+        return [r for t in plan.tiles() for r in t]
+    return [(b, c) for b, cols in plan.tiles() for c in cols]
+
+
+def _every(plan):
+    B, H, W = plan.B, plan.H, plan.W
+    if plan.axis == 2:
+        return list(range(B * H))
+    return [(b, c) for b in range(B) for c in range(W)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_plan_tiles_cover_every_row_or_column_once(shape, axis, dtype):
+    """Both kernels get a tiled plan whose tiles cover each row (axis 2) or
+    each column of each sample (axis 1) exactly once, within one block's
+    shared memory, with the bytes of the kernels' layout."""
+    for direction in ("fwd", "bwd"):
+        plan = S.launch_plan(*shape, axis, direction, _DT[dtype])
+        assert plan.variant == "tiled"
+        assert plan.smem <= S.SMEM_PER_BLOCK == 232_448
+        assert plan.smem == S._smem(axis, direction, shape[1], shape[2], plan.tile,
+                                    2 if dtype == "bfloat16" else 4)
+        if axis == 1:
+            assert plan.tile in S.STRIP_COLUMNS
+        assert _covered(plan) == _every(plan)
+
+
+@pytest.mark.parametrize("shape,axis,direction,dtype", [
+    ((3, 4000, 4000), 1, "bwd", "float32"),  # x and g strips of 8 columns: 256,000 B
+    ((1, 40000, 2), 1, "fwd", "bfloat16"),  # one strip of 8 columns: 640,000 B
+    ((2, 3, 60000), 2, "fwd", "float32"),  # one row: 240,000 B
+    ((2, 3, 60000), 2, "bwd", "bfloat16"),  # a row of x and of g: 240,032 B
+])
+def test_launch_plan_takes_the_direct_variant_beyond_shared_memory(shape, axis, direction,
+                                                                   dtype):
+    """A tile that fits no block takes the direct kernel (no tile, no shared
+    memory), never the plain version; a hand-picked tile that does not fit
+    raises."""
+    plan = S.launch_plan(*shape, axis, direction, _DT[dtype])
+    assert (plan.variant, plan.tile, plan.smem) == ("direct", 0, 0)
+    assert _covered(plan) == _every(plan)
+    with pytest.raises(ValueError):
+        S.launch_plan(*shape, axis, direction, _DT[dtype], tile=8 if axis == 1 else 1)
+
+
+def _record_launches(monkeypatch):
+    """Route the kernel wrappers to the plain versions; record with_dx."""
+    seen = []
+    monkeypatch.setattr(S, "_launch_fwd", lambda x, d, a: S.fractional_shift_reference(x, d, a))
+
+    def bwd(x, d, g, a, with_dx=True):
+        seen.append(with_dx)
+        dx, dd = S.fractional_shift_vjp_reference(x, d, g, a)
+        return (dx if with_dx else None), dd
+
+    monkeypatch.setattr(S, "_launch_bwd", bwd)
+    return seen
+
+
+@pytest.mark.parametrize("x_needs_grad", [True, False])
+@pytest.mark.parametrize("axis", [1, 2])
+def test_backward_launches_dx_free_exactly_when_x_needs_no_grad(monkeypatch, rng, axis,
+                                                                x_needs_grad):
+    seen = _record_launches(monkeypatch)
+    x, delta = _case(rng, axis)
+    w = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    xt = torch.from_numpy(x).requires_grad_(x_needs_grad)
+    dt = torch.from_numpy(delta).requires_grad_(True)
+    (S.FractionalShiftFunction.apply(xt, dt, axis) * w).sum().backward()
+    assert seen == [x_needs_grad]
+    assert (xt.grad is not None) == x_needs_grad
+    want = S.fractional_shift_vjp_reference(xt.detach(), dt.detach(), w, axis)[1]
+    assert torch.equal(dt.grad, want)
+
+
+@pytest.mark.parametrize("image_needs_grad", [False, True])
+def test_per_shear_rotation_launches_dx_free_for_its_first_shift(monkeypatch, rng,
+                                                                 image_needs_grad):
+    """rotate_image_fast(backend="shear") on data: the backward runs the shifts
+    in reverse, and only the first shift (on the data) drops dx."""
+    seen = _record_launches(monkeypatch)
+    monkeypatch.setattr(RS, "fractional_shift", S.FractionalShiftFunction.apply)
+    img = torch.from_numpy(rng.random((2, 1, 16, 16), np.float32)).requires_grad_(
+        image_needs_grad)
+    th = torch.tensor([0.3, -1.1], requires_grad=True)
+    out = RS.rotate_image_fast(img, th, "reflection", backend="shear")
+    out.square().sum().backward()
+    assert seen == [True, True, image_needs_grad]
+    assert th.grad is not None and bool(torch.isfinite(th.grad).all())
