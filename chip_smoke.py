@@ -10,7 +10,9 @@ Run from the repository root:  python3 chip_smoke.py
    of real rotations, integer shifts and random shifts; kernels and plain
    versions are timed with CUDA events:
    * rot3: the forward and backward kernels against `rot3_reference` and
-     autograd through it (forward and dx bit-equal), also at edge canvases
+     autograd through it (forward and dx bit-equal), also at the shapes the
+     other driven paths give it ([512, 180, 180], PatchDataset's rotation;
+     [193, 256, 256], train_rvae's ragged val batch) and at edge canvases
      [3, P, P] for P in 2, 33, 130, 255 and MAX_P; the dx-free backward gives
      the deltas' bits; times for each cluster size that fits;
    * shear (kernel C), along both axes: the forward against
@@ -36,6 +38,25 @@ Run from the repository root:  python3 chip_smoke.py
    rotation under "auto" (kernel C, not rot3); three fused paired train steps
    of `RVAE(fast_resample=False)` at batch 512 in bf16 (rot3 only for the
    augmentation); `python -m livae_tpu_torch.bench_rotate --reps 3`.
+7. The training entry points, each `run_training(args)` in-process with parsed
+   arguments, on two 1024-pixel synthetic frames (`--synthetic 2
+   --val-split 0.25`), at the defaults otherwise (patch 128, padding 32,
+   latent 16, batch 512, bf16):
+   * `livae_tpu_torch.scripts.train_rvae`, 3 epochs with an STN learning
+     rate, beta annealing and a resume checkpoint per epoch: per epoch 3 rot3
+     forward launches per train step and per val batch (the ragged tail too),
+     2 backward per step, no shear launch; finite metrics; beta 0, 0, 5; the
+     optimizer's rates at each epoch's first step are the two cosine
+     schedules'; best and `_final` checkpoints with the payload's five keys;
+     a fresh model loaded from `_final` encodes bit-equal. Then `--epochs 4
+     --resume`: it starts at epoch 3 from the state whose digest epoch 2
+     printed, with beta 10 and a finite loss;
+   * `livae_tpu_torch.scripts.train_vae`, 3 epochs: no kernel launch, finite
+     metrics, checkpoints that load strictly.
+8. Three fused VAE steps on `PatchDataset(patch_size=128)` (rotation
+   augmentation: 1 rot3 forward per step, no backward); the f32 VAE on the
+   card against the CPU port at 2e-4; `python -m livae_tpu_torch.bench` as a
+   subprocess, whose stdout must be one JSON line.
 Around each driven path the launch counters are zeroed just before and read
 just after. The build step prints each kernel's registers and spills (ptxas);
 the rot3 phase prints each cluster size's time, shared memory per block,
@@ -51,35 +72,50 @@ line; it also exits non-zero without CUDA or without the package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from livae_tpu_torch import bench_rotate
-from livae_tpu_torch.data.datasets import PairedAdaptiveLatticeDataset
+from livae_tpu_torch.data.datasets import PairedAdaptiveLatticeDataset, PatchDataset
 from livae_tpu_torch.data.synthetic import synthetic_mos2_frame
 from livae_tpu_torch.models.rvae import RVAE
+from livae_tpu_torch.models.vae import VAE
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
 from livae_tpu_torch.ops import shear as SH
 from livae_tpu_torch.ops.resample import aligned_margin, rotate_image_fast
+from livae_tpu_torch.scripts import train_rvae, train_vae
 from livae_tpu_torch.train.engine import (
     make_fused_encode,
     make_fused_rvae_eval,
     make_fused_rvae_train_step,
+    make_fused_vae_train_step,
     metrics_to_host,
 )
 from livae_tpu_torch.train.state import make_optimizer
+from livae_tpu_torch.utils.checkpoint import load_checkpoint, load_reference_checkpoint
 
 SHAPE = (512, 256, 256)  # rot3's canvas on the main path at batch 512, patch 128
 PATCH, LATENT, BATCH, PADDING = 128, 16, 512, 32
 STEPS_PER_EPOCH, EPOCHS, VAL_BATCHES, ENCODE_STEPS = 6, 2, 2, 4
 EXACT_STEPS = 3
+PATCH_DATASET_STEPS = 3
+# the entry points' data: two bench frames, a quarter of the sites held out
+CLI_DATA = ["--synthetic", "2", "--synthetic-size", "1024", "--val-split", "0.25",
+            "--no-tensorboard"]
+NO_LAUNCH = {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -135,6 +171,11 @@ def _deltas(kind: str, gen, B: int, P: int):
 
 
 EDGE_B, EDGE_P = 3, (2, 33, 130, 255, R.MAX_P)  # ragged bands, clusters below 8
+# rot3's other shapes on the driven paths: the canvas of PatchDataset's rotation
+# (padded patch 136 plus a margin of 136 // 6 each side) and the ragged last val
+# batch of train_rvae (705 val sites at batch 512); the phases that drive them
+# check that their shape is held here
+PATH_SHAPES = [(512, 180, 180), (193, 256, 256)]
 
 
 def _rot3_errors(x, w, d_row, d_col):
@@ -159,7 +200,8 @@ def _rot3_errors(x, w, d_row, d_col):
 
 def kernel_phase():
     """Hold both rot3 kernels against the plain version at the main path's
-    shape and at edge canvases; time them at bf16 for each cluster size."""
+    shape, at the other driven paths' shapes and at edge canvases; time them at
+    bf16 for each cluster size."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, P, _ = SHAPE
@@ -167,7 +209,7 @@ def kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     err = {"fwd": 0.0, "bwd": 0.0}
-    for shape in [SHAPE] + [(EDGE_B, p, p) for p in EDGE_P]:
+    for shape in [SHAPE] + PATH_SHAPES + [(EDGE_B, p, p) for p in EDGE_P]:
         for dtype in (torch.bfloat16, torch.float32):
             for kind in ("rotation", "integer", "random"):
                 x = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -576,6 +618,239 @@ def bench_phase():
     return results, got
 
 
+def run_cli(script, argv):
+    """`script.run_training(args)` in-process on parsed arguments, with the
+    launch counters zeroed just before and read just after. Returns (result,
+    launches, what it printed, peak GiB allocated)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    args = script.build_argparser().parse_args(argv)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = script.run_training(args)
+    finally:
+        sys.stdout.write(printed.getvalue())
+    torch.cuda.synchronize()
+    return out, counts(), printed.getvalue(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def _epoch_rates(out, batch: int = BATCH):
+    """Per epoch: patches/s of the train steps alone, and with the eval."""
+    return [{"epoch": e["epoch"], "steps": e["steps"], "val_batches": e["val_batches"],
+             "train_patches_per_s": e["steps"] * batch / e["train_s"],
+             "epoch_patches_per_s": e["steps"] * batch / (e["train_s"] + e["eval_s"])}
+            for e in out["epochs"]]
+
+
+def _check_epochs(out, what: str, per_step, per_val_batch):
+    """Every epoch of a run: finite metrics, and the kernel launches that its
+    steps and val batches (the ragged tail too) must make."""
+    n, n_train, n_val = out["sites"]
+    for e in out["epochs"]:
+        check(e["steps"] == n_train // BATCH and e["steps"] >= 2,
+              f"{what} epoch {e['epoch']} took {e['steps']} steps for {n_train} train sites")
+        check(e["val_batches"] == -(-n_val // BATCH), f"{what} val batches {e['val_batches']}")
+        want = dict(NO_LAUNCH)
+        for k, v in per_step.items():
+            want[k] += v * e["steps"]
+        for k, v in per_val_batch.items():
+            want[k] += v * e["val_batches"]
+        check(e["launches"] == want,
+              f"{what} epoch {e['epoch']} launches {e['launches']}, expected {want}")
+        for name, v in e["metrics"].items():
+            check(math.isfinite(v), f"{what} epoch {e['epoch']} metric {name} = {v}")
+
+
+def train_rvae_phase(tmp: Path):
+    """train_rvae end to end: 3 epochs, then a resumed fourth."""
+    ckpt = tmp / "rvae" / "rvae_best.pt"
+    argv = [*CLI_DATA, "--stn-lr", "1e-4", "--beta-annealing", "--beta-warmup-epochs", "1",
+            "--beta-annealing-epochs", "2", "--checkpoint-every", "1", "--checkpoint", str(ckpt)]
+    os.environ["LIVAE_PARAM_HASH"] = "1"
+    try:
+        out, launches, _, peak = run_cli(train_rvae, [*argv, "--epochs", "3"])
+        n, n_train, n_val = out["sites"]
+        check(n_val > BATCH and n_val % BATCH != 0,
+              f"{n_val} val sites give no full batch with a ragged tail")
+        canvas = PATCH + 2 * PADDING
+        canvas += 2 * (canvas // 6)
+        check((canvas,) * 2 == SHAPE[1:] and (n_val % BATCH, canvas, canvas) in PATH_SHAPES,
+              f"the kernel phase did not hold rot3 at the tail's {[n_val % BATCH, canvas, canvas]}")
+        rot3_only = dict(per_step={"rot3_fwd": 3, "rot3_bwd": 2}, per_val_batch={"rot3_fwd": 3})
+        _check_epochs(out, "train_rvae", **rot3_only)
+        check(len(out["epochs"]) == 3 and [e["beta"] for e in out["epochs"]] == [0.0, 0.0, 5.0],
+              f"train_rvae betas {[e['beta'] for e in out['epochs']]}")
+        check(launches == {k: sum(e["launches"][k] for e in out["epochs"]) for k in launches},
+              f"train_rvae launched {launches} outside its epochs' counts")
+        # the optimizer's two rates (model, STN) against the cosine schedules, at each
+        # epoch's first step and, from the schedule, at the last step taken
+        steps = out["epochs"][0]["steps"]
+        total = 3 * steps
+
+        def cosine(count):
+            return [lr * 0.5 * (1.0 + math.cos(math.pi * count / total)) for lr in (1e-3, 1e-4)]
+
+        for e in out["epochs"]:
+            got, want = e["lr_first_step"], cosine(e["epoch"] * steps)
+            check(len(got) == 2 and all(math.isclose(a, b, rel_tol=1e-9) for a, b in zip(got, want)),
+                  f"train_rvae epoch {e['epoch']} rates {got}, the schedules give {want}")
+        got, want = out["epochs"][-1]["lr_last_step"], cosine(total - 1)
+        check(all(math.isclose(a, b, rel_tol=1e-9) for a, b in zip(got, want)),
+              f"train_rvae last step's rates {got}, the schedules give {want}")
+        check(out["scheduler"].last_epoch == total,
+              f"schedule count {out['scheduler'].last_epoch}")
+
+        final = Path(out["final_checkpoint"])
+        check(ckpt.exists() and final.exists() and final.name == "rvae_best_final.pt",
+              "train_rvae wrote no best or _final checkpoint")
+        for path in (ckpt, final):
+            payload = load_checkpoint(path)
+            check(set(payload) == {"model_state", "optimizer_state", "epoch", "best_val", "args"},
+                  f"{path.name} holds {sorted(payload)}")
+            check(payload["args"]["patch_size"] == PATCH and payload["args"]["stn_lr"] == 1e-4,
+                  f"{path.name} does not carry the run's arguments")
+        state, payload = load_reference_checkpoint(final)
+        check(payload["epoch"] == 2 and payload["best_val"] == out["best_val"], "_final's payload")
+        fresh = RVAE(LATENT, 1, PATCH, "bfloat16", device="cuda")
+        fresh.load_state_dict(state, strict=True)
+        x = torch.rand((64, 1, PATCH, PATCH), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(6))
+        with torch.no_grad():
+            same = all(torch.equal(a, b) for a, b in zip(fresh.encode(x), out["model"].encode(x)))
+        check(same, "a model loaded from _final encodes differently from the trained one")
+
+        resumed, r_launches, printed, r_peak = run_cli(train_rvae, [*argv, "--epochs", "4",
+                                                                    "--resume"])
+        check("Resumed from" in printed and "at epoch 3" in printed, "no 'Resumed from' line")
+        check(resumed["start_epoch"] == 3 and [e["epoch"] for e in resumed["epochs"]] == [3],
+              f"resumed run ran epochs {[e['epoch'] for e in resumed['epochs']]}")
+        check(resumed["resumed_digest"] is not None
+              and resumed["resumed_digest"] == out["epochs"][2]["digest"],
+              f"restored digest {resumed['resumed_digest']}, epoch 2 printed "
+              f"{out['epochs'][2]['digest']}")
+        check(resumed["sites"] == out["sites"], "the resumed run built another site table")
+        _check_epochs(resumed, "train_rvae --resume", **rot3_only)
+        check(resumed["epochs"][0]["beta"] == 10.0, f"resumed beta {resumed['epochs'][0]['beta']}")
+        check(r_launches == resumed["epochs"][0]["launches"], f"resumed launches {r_launches}")
+    finally:
+        del os.environ["LIVAE_PARAM_HASH"]
+    return {
+        "sites": list(out["sites"]), "dataset_build_s": out["dataset_build_s"],
+        "epochs": _epoch_rates(out), "resumed_epoch": _epoch_rates(resumed)[0],
+        "betas": [e["beta"] for e in out["epochs"]] + [resumed["epochs"][0]["beta"]],
+        "train_loss": [e["metrics"]["train_loss"] for e in out["epochs"] + resumed["epochs"]],
+        "val_loss": [e["metrics"]["val_loss"] for e in out["epochs"] + resumed["epochs"]],
+        "peak_memory_gib": max(peak, r_peak),
+        "launches": {k: launches[k] + r_launches[k] for k in launches},
+    }
+
+
+def train_vae_phase(tmp: Path):
+    """train_vae end to end on the same data: 3 epochs at the defaults."""
+    ckpt = tmp / "vae" / "vae_best.pt"
+    out, launches, _, peak = run_cli(train_vae, [*CLI_DATA, "--epochs", "3",
+                                                 "--checkpoint", str(ckpt)])
+    _check_epochs(out, "train_vae", per_step={}, per_val_batch={})
+    check(launches == NO_LAUNCH, f"train_vae launched {launches}")
+    check(len(out["epochs"]) == 3 and all(e["beta"] == 1.0 for e in out["epochs"]),
+          "train_vae epochs")
+    final = Path(out["final_checkpoint"])
+    check(ckpt.exists() and final.exists(), "train_vae wrote no best or _final checkpoint")
+    for path in (ckpt, final):
+        state, payload = load_reference_checkpoint(path)
+        check(set(payload) == {"model_state", "optimizer_state", "epoch", "best_val", "args"},
+              f"{path.name} holds {sorted(payload)}")
+        VAE(LATENT, 1, PATCH, "bfloat16", device="cuda").load_state_dict(state, strict=True)
+    return {
+        "sites": list(out["sites"]), "dataset_build_s": out["dataset_build_s"],
+        "epochs": _epoch_rates(out),
+        "train_loss": [e["metrics"]["train_loss"] for e in out["epochs"]],
+        "val_loss": [e["metrics"]["val_loss"] for e in out["epochs"]],
+        "peak_memory_gib": peak, "launches": launches,
+    }
+
+
+def patch_dataset_phase():
+    """Fused VAE steps on PatchDataset, whose augmentation rotates each batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    frame, _ = synthetic_mos2_frame(size=1024, spacing=40.0, seed=0)
+    ds = PatchDataset([frame], patch_size=PATCH, device="cuda")
+    build_s = time.perf_counter() - t0
+    check(len(ds) > 0 and ds.transform.rotation and not ds._NORMALIZE, "PatchDataset set-up")
+    canvas = PATCH + 2 * ds.padding
+    canvas += 2 * (canvas // 6)
+    check((BATCH, canvas, canvas) in PATH_SHAPES,
+          f"the kernel phase did not hold rot3 at PatchDataset's {[BATCH, canvas, canvas]}")
+    model = VAE(LATENT, 1, PATCH, "bfloat16", device="cuda",
+                generator=torch.Generator().manual_seed(1))
+    opt = make_optimizer(model, 1e-3, optimizer="adam")
+    frames_padded, img_idx, coords, margin = ds.device_site_table
+    step = make_fused_vae_train_step(model, opt, patch_size=PATCH, padding=ds.padding,
+                                     cfg=ds.transform, margin=margin, normalize=False)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    warm = torch.randint(0, len(ds), (1, BATCH), generator=gen, device="cuda")
+    metrics_to_host(step(frames_padded, img_idx, coords, warm, gen, 1.0, 0.0))
+    idx = torch.randint(0, len(ds), (PATCH_DATASET_STEPS, BATCH), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    tm = metrics_to_host(step(frames_padded, img_idx, coords, idx, gen, 1.0, 0.0))
+    dt = time.perf_counter() - t0
+    got = counts()
+    check(got == {**NO_LAUNCH, "rot3_fwd": PATCH_DATASET_STEPS},
+          f"PatchDataset train launches {got}")
+    for name, v in tm.items():
+        check(bool(np.isfinite(v).all()), f"PatchDataset metric {name} not finite")
+    return {"sites": len(ds), "dataset_build_s": build_s, "steps": PATCH_DATASET_STEPS,
+            "train_patches_per_s": PATCH_DATASET_STEPS * BATCH / dt, "loss": float(tm["loss"]),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": got}
+
+
+def vae_agreement_phase():
+    """f32 VAE on the card vs the same weights on the CPU, small batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = VAE(LATENT, 1, PATCH, device="cpu", generator=torch.Generator().manual_seed(3))
+    gpu = VAE(LATENT, 1, PATCH, device="cuda", generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((8, 1, PATCH, PATCH), generator=g)
+    eps = torch.randn((8, LATENT), generator=g)
+    with torch.no_grad():
+        want = cpu(x, eps=eps)
+        got = gpu(x.cuda(), eps=eps.cuda())
+    torch.cuda.synchronize()
+    worst = max((a.float().cpu() - b.float()).abs().max().item() for a, b in zip(got, want))
+    # 2e-4: the bound the CPU port holds against the JAX package
+    print(f"agreement: f32 VAE forward, card vs CPU, max_abs_err {worst:.3e} (tol 2e-4)")
+    check(worst <= 2e-4, "VAE on the card disagrees with the CPU")
+
+
+def port_bench_phase():
+    """python -m livae_tpu_torch.bench in a process of its own: exit code 0 and
+    one JSON line on stdout."""
+    proc = subprocess.run([sys.executable, "-m", "livae_tpu_torch.bench"], capture_output=True,
+                          text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    sys.stderr.write(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: {proc.stdout[-500:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench printed {len(lines)} lines on stdout")
+    result = json.loads(lines[0])
+    check({"metric", "value", "unit", "vs_baseline", "detail"} <= set(result)
+          and "error" not in result, f"bench line {lines[0]}")
+    detail = result["detail"]
+    check(result["value"] > 0 and detail["train_patches_per_sec_sustained"] > 0
+          and detail["encode_patches_per_sec"] > 0 and detail["batch"] == BATCH
+          and detail["patch"] == PATCH, f"bench figures {lines[0]}")
+    return lines[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -609,6 +884,15 @@ def main() -> int:
     print("exact_resample_path " + json.dumps({"card": smi, **exact}))
     bench, bench_launches = bench_phase()
     print("bench_rotate " + json.dumps({"card": smi, "us_per_patch": bench}))
+    with tempfile.TemporaryDirectory(prefix="livae_smoke_") as tmp:
+        rvae_cli = train_rvae_phase(Path(tmp))
+        print("train_rvae " + json.dumps({"card": smi, **rvae_cli}))
+        vae_cli = train_vae_phase(Path(tmp))
+        print("train_vae " + json.dumps({"card": smi, **vae_cli}))
+    patches = patch_dataset_phase()
+    print("patch_dataset " + json.dumps({"card": smi, **patches}))
+    vae_agreement_phase()
+    print("bench " + port_bench_phase())
     # kernel C runs on the rotation paths of this slice, not on the paired main path
     shear_launches = {k: rot_launches[k] + bench_launches[k] for k in rot_launches}
     check(shear_launches["shear_fwd"] > 0 and shear_launches["shear_bwd"] > 0,
@@ -633,9 +917,15 @@ def main() -> int:
          "plain_ms": plain, "bound_ms": b, "bound_by": "bytes", "library_ms": None}
         for name, src, replaces, path_launches, path, e, t, plain, b in entries
     ]
+    by_path = {"main": main["launches"], "rotation": shear_launches,
+               "exact_resample": exact["launches"], "train_rvae": rvae_cli["launches"],
+               "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"]}
+    for k in kernels:  # each driven path's own count, read just after it ran
+        k["launches_by_path"] = {path: got[k["name"]] for path, got in by_path.items()}
     for k in kernels[:2]:  # the rot3 launch plan at the main path's canvas
         plan = R.launch_plan(SHAPE[1], k["name"][5:])
         k.update(cluster=plan.cluster, smem_per_block=plan.smem)
+        check(k["launches_by_path"]["train_rvae"] > 0, f"train_rvae launched no {k['name']}")
     for k in kernels[2:]:  # kernel C: f32 axis 2 above; every timed case beside it
         d = k["name"][6:]
         k.update(dtype="float32", axis=2, shifts="rotation", cases={

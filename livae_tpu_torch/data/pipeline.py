@@ -8,6 +8,11 @@ Augmentation draws (scale U(0.9, 1.1), h/v flips p=0.5, integer roll jitter
 U{-4..4}, angle U(0, 2pi)) come from a torch.Generator, or are passed in
 explicitly (`PairedDraws`) to reproduce another implementation's randomness.
 
+Unpaired extraction (`extract_batch`): without `cfg.rotation` the flips and
+the jitter fold into the resample grid; with it the order is scale and
+translate, one `rotate_image_fast` on a zero-padded canvas (margin P2 // 6),
+then the flips and the roll jitter on the rotated patch.
+
 Paired semantics: `rotated = rotate(patch, +angle)` in the STN grid
 convention, so theta_rotated = theta_original - angle, the relation the
 cycle-consistency loss expects. Patches come out NCHW, [B, 1, P, P].
@@ -136,6 +141,18 @@ def _scale_translate(rois, ry, rx, out_size: int, scale, flip_h, flip_v, jy, jx)
     return _axis_resample(out, src_for(rx, flip_h, jx), dim=2)
 
 
+def _flips_and_jitter(p, flip_h, flip_v, jy, jx):
+    """Per-sample h/v flips, then the integer roll jitter, on [B, H, W]:
+    out[i] = in[(i - j) mod n] along each axis (torch.roll semantics)."""
+    p = torch.where(flip_h[:, None, None], p.flip(2), p)
+    p = torch.where(flip_v[:, None, None], p.flip(1), p)
+    H, W = p.shape[1:]
+    rows = torch.remainder(torch.arange(H, device=p.device)[None, :] - jy[:, None], H)
+    cols = torch.remainder(torch.arange(W, device=p.device)[None, :] - jx[:, None], W)
+    p = torch.gather(p, 1, rows[:, :, None].expand(-1, -1, W))
+    return torch.gather(p, 2, cols[:, None, :].expand(-1, H, -1))
+
+
 def _center_crop_b(p: torch.Tensor, size: int) -> torch.Tensor:
     R = p.shape[1]
     top = int(round((R - size) / 2.0))
@@ -215,19 +232,40 @@ def extract_batch_paired(
 
 def extract_batch(
     frames_padded, img_idx, centers, patch_size: int, padding: int = 48,
-    normalize: bool = True, margin: int | None = None,
+    normalize: bool = True, margin: int | None = None, *,
+    cfg: AugmentConfig | None = None, generator: torch.Generator | None = None,
+    draws: PairedDraws | None = None,
 ):
-    """Un-augmented extraction (the encode path): [B, 1, P, P] float32."""
+    """Unpaired extraction: [B, 1, P, P] float32.
+
+    With `cfg` and a `generator` (or explicit `draws`, which win) the batch is
+    augmented; without `cfg` it is the un-augmented encode path, and `draws`
+    are refused. The angle is drawn whether or not `cfg.rotation` uses it.
+    """
+    if cfg is None and draws is not None:
+        raise ValueError("draws need the cfg that says how to apply them")
     P2, roi, default_margin = _default_margin(patch_size, padding)
     if margin is None:
         margin = default_margin
     B = img_idx.shape[0]
     rois, ry, rx = _crop_rois(frames_padded, img_idx, centers[:, 0], centers[:, 1], roi, margin)
     dev = frames_padded.device
+    if cfg is not None and draws is None and generator is not None:
+        draws = sample_paired_draws(B, cfg, generator, dev)
     no_flip = torch.zeros(B, dtype=torch.bool, device=dev)
     no_jit = torch.zeros(B, dtype=torch.long, device=dev)
-    p = _scale_translate(rois, ry, rx, P2, torch.ones(B, device=dev), no_flip, no_flip,
-                         no_jit, no_jit)
+    if draws is None:
+        draws = PairedDraws(torch.ones(B, device=dev), no_flip, no_flip, no_jit, no_jit,
+                            torch.zeros(B, device=dev))
+    if cfg is None or not cfg.rotation:
+        p = _scale_translate(rois, ry, rx, P2, draws.scale, draws.flip_h, draws.flip_v,
+                             draws.jy, draws.jx)
+    else:
+        # the flips and the jitter follow the rotation here, so they cannot fold
+        p = _scale_translate(rois, ry, rx, P2, draws.scale, no_flip, no_flip, no_jit, no_jit)
+        p = rotate_image_fast(p[:, None], draws.angle, padding_mode="zeros",
+                              margin=P2 // 6)[:, 0]
+        p = _flips_and_jitter(p, draws.flip_h, draws.flip_v, draws.jy, draws.jx)
     p = _center_crop_b(p, patch_size)
     if normalize:
         p = _minmax_normalize(p)

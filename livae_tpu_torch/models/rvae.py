@@ -32,8 +32,6 @@ cos/sin of -theta.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -46,21 +44,9 @@ from ..ops.resample import (
     rotate_image_fast,
     rotation_matrix,
 )
-from .vae import ENCODER_WIDTHS, reparameterize
+from .vae import _conv, _conv_trunk, _dtype, init_torch_default, reparameterize
 
 __all__ = ["RotationSTN", "Encoder", "Decoder", "RVAE", "init_torch_default"]
-
-
-def _dtype(compute_dtype: str | None) -> torch.dtype | None:
-    return None if compute_dtype is None else getattr(torch, compute_dtype)
-
-
-def _conv(conv: nn.Conv2d, x: torch.Tensor, cd: torch.dtype | None) -> torch.Tensor:
-    """conv(x) with input, weight and bias cast to the compute dtype."""
-    w, b = conv.weight, conv.bias
-    if cd is not None:
-        x, w, b = x.to(cd), w.to(cd), b.to(cd)
-    return F.conv2d(x, w, b, conv.stride, conv.padding)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -81,18 +67,6 @@ def _reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     """nn.ReflectionPad2d(1) of [B, C, H, W]."""
     x = torch.cat([x[:, :, 1:2], x, x[:, :, -2:-1]], 2)
     return torch.cat([x[..., 1:2], x, x[..., -2:-1]], 3)
-
-
-def init_torch_default(module: nn.Module, generator: torch.Generator | None) -> None:
-    """PyTorch's default Conv/Linear init, drawn from `generator`:
-    kaiming_uniform(a=sqrt(5)) weights, U(+-1/sqrt(fan_in)) biases."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
-                fan_in = m.weight[0].numel()
-                bound = 1.0 / math.sqrt(fan_in)
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
 
 
 class RotationSTN(nn.Module):
@@ -164,12 +138,7 @@ class Encoder(nn.Module):
         s = patch_size // 16
         self.compute_dtype = compute_dtype
         self.rotation_stn = RotationSTN(patch_size, in_channels, compute_dtype, fast_resample)
-        layers = []
-        c_in = in_channels
-        for w in ENCODER_WIDTHS:
-            layers += [nn.Conv2d(c_in, w, 4, stride=2, padding=1), nn.ReLU()]
-            c_in = w
-        self.conv_layers = nn.Sequential(*layers)
+        self.conv_layers = _conv_trunk(in_channels)
         self.fc_mu = nn.Linear(256 * s * s, latent_dim)
         self.fc_logvar = nn.Linear(256 * s * s, latent_dim)
 

@@ -1,0 +1,190 @@
+"""Shared plumbing of the training entry points (port of scripts/_common.py).
+
+Data resolution: `--data` .h5 paths, else data/*.h5, else `--synthetic N`
+ground-truthed synthetic MoS2 frames. Device flags: the entry points run on
+the CUDA device unless `--cpu` is passed. Randomness: every epoch's generator
+is seeded from (seed, stream, epoch), so a resumed run draws what an
+uninterrupted one draws.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import glob
+import hashlib
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..data.h5 import load_image_from_h5
+from ..data.synthetic import synthetic_mos2_frame
+from ..device import resolve_device
+from ..ops import rot3, shear
+
+
+def resolve_images(args) -> list[np.ndarray]:
+    """Load frames from --data h5 paths, data/*.h5, or --synthetic."""
+    if getattr(args, "synthetic", 0):
+        size = getattr(args, "synthetic_size", 1024)
+        kwargs = {}
+        if getattr(args, "synthetic_vacancy_rate", None) is not None:
+            kwargs["vacancy_rate"] = args.synthetic_vacancy_rate
+        if getattr(args, "synthetic_s_amplitude", None) is not None:
+            kwargs["s_amplitude"] = args.synthetic_s_amplitude
+        print(f"Generating {args.synthetic} synthetic MoS2 frames ({size}x{size})...")
+        return [
+            synthetic_mos2_frame(size=size, spacing=40.0, seed=s, **kwargs)[0]
+            for s in range(args.synthetic)
+        ]
+    paths = args.data if args.data else sorted(glob.glob("data/*.h5"))
+    if not paths:
+        raise SystemExit("No input data: pass --data <files.h5> or --synthetic N")
+    print(f"Loading {len(paths)} HDF5 frames...")
+    return [load_image_from_h5(p, getattr(args, "dataset_name", None)) for p in paths]
+
+
+def add_data_flags(parser) -> None:
+    parser.add_argument("--data", nargs="*", help="Paths to H5 files (default: data/*.h5)")
+    parser.add_argument(
+        "--dataset-name",
+        type=str,
+        default=None,
+        help="Dataset path inside H5 file; auto-detects a 2D dataset if omitted",
+    )
+    parser.add_argument(
+        "--synthetic",
+        type=int,
+        default=0,
+        help="Generate N synthetic MoS2 frames instead of loading .h5 data",
+    )
+    parser.add_argument(
+        "--synthetic-size", type=int, default=1024, help="Synthetic frame size"
+    )
+    parser.add_argument(
+        "--synthetic-vacancy-rate", type=float, default=None,
+        help="S-vacancy rate for synthetic frames (default: the generator's 0.03)",
+    )
+    parser.add_argument(
+        "--synthetic-s-amplitude", type=float, default=None,
+        help="S-site amplitude for synthetic frames (vacancy regime: 0.45)",
+    )
+
+
+def add_device_flags(parser, mp_help: str) -> None:
+    parser.add_argument(
+        "--num-devices",
+        type=str,
+        default="1",
+        help='Total devices: an integer or "auto" (all local devices)',
+    )
+    parser.add_argument("--model-parallel", type=int, default=1, help=mp_help)
+
+
+def resolve_run_device(args) -> torch.device:
+    """The run's device: CUDA, or the CPU with --cpu (the only way onto it).
+    More than one device is not ported: anything but one exits."""
+    device = resolve_device("cpu" if getattr(args, "cpu", False) else None)
+    n_local = torch.cuda.device_count() if device.type == "cuda" else 1
+    num = str(getattr(args, "num_devices", "1"))
+    n = n_local if num == "auto" else int(num)
+    if n != 1 or int(getattr(args, "model_parallel", 1)) != 1:
+        raise SystemExit(
+            f"--num-devices {num} --model-parallel {getattr(args, 'model_parallel', 1)}: this "
+            "build trains on one device; data parallelism is ROADMAP queue 1, item 15"
+        )
+    return device
+
+
+def note_ignored_flags(args) -> None:
+    for flag, default in (("num_workers", 8), ("prefetch_factor", 4), ("compile", False)):
+        if getattr(args, flag, default) != default:
+            print(f"note: --{flag.replace('_', '-')} is accepted and ignored: batches are "
+                  "extracted on the device")
+
+
+def split_indices(n: int, val_split: float, seed: int = 0):
+    """Deterministic train/val index split."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    n_val = max(1, int(n * val_split))
+    return perm[n_val:], perm[:n_val]
+
+
+def stream_generator(seed: int, stream: str, epoch: int, device) -> torch.Generator:
+    """A fresh generator on `device` for one (seed, stream, epoch). Streams
+    ("init", "train", "val", "vis") are independent, and no generator lives
+    across epochs, so resuming needs no replay of history."""
+    digest = hashlib.sha256(f"{seed}/{stream}/{epoch}".encode()).digest()
+    return torch.Generator(device=device).manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+
+
+def epoch_index_batches(train_idx: torch.Tensor, batch_size: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    """[steps, batch_size] shuffled train indices for one epoch (drop last)."""
+    steps = len(train_idx) // batch_size
+    perm = torch.randperm(len(train_idx), generator=generator, device=train_idx.device)
+    return train_idx[perm[: steps * batch_size]].reshape(steps, batch_size)
+
+
+def state_digest(model, optimizer, scheduler=None) -> str:
+    """Order-stable sha256 over every weight, optimizer-state tensor and the
+    schedule's count (LIVAE_PARAM_HASH=1 prints it each epoch): a resumed run
+    must print the digests of an uninterrupted one."""
+    h = hashlib.sha256()
+
+    def feed(obj):
+        if isinstance(obj, torch.Tensor):
+            h.update(obj.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        elif isinstance(obj, dict):
+            for k in obj:
+                feed(obj[k])
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                feed(v)
+
+    feed(model.state_dict())
+    feed(optimizer.state_dict()["state"])
+    h.update(str(scheduler.last_epoch if scheduler is not None else 0).encode())
+    return h.hexdigest()[:16]
+
+
+def kernel_launches() -> dict[str, int]:
+    """The CUDA kernels' launch counters (0 on the CPU, which launches none)."""
+    return {"rot3_fwd": rot3.FWD_LAUNCHES, "rot3_bwd": rot3.BWD_LAUNCHES,
+            "shear_fwd": shear.FWD_LAUNCHES, "shear_bwd": shear.BWD_LAUNCHES}
+
+
+def card_description(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", str(index)],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def profile_epoch(enabled: bool, log_dir: str, device: torch.device):
+    """Trace the enclosed epoch with torch.profiler into <log-dir>/profile."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    out = Path(log_dir) / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+        sync(device)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"Profiler trace written to {out}")

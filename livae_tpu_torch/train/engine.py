@@ -1,15 +1,24 @@
-"""Paired rVAE training, eval and encode (port of livae_tpu/train/engine.py).
+"""Training, eval and encode steps (port of livae_tpu/train/engine.py).
 
 The JAX package jits a whole epoch (extraction + steps) into one dispatch;
 here the fused steps are plain Python loops over the [S, B] index batches.
 Metrics accumulate on the device and reach the host once per epoch
 (`metrics_to_host`), under the JAX package's metric names.
 
+Two families: the paired rVAE steps (cycle consistency and the
+canonical-frame loss), and the generic steps on unpaired batches, which
+dispatch on the model's outputs: 3 (a plain VAE) or 5 (an rVAE trained with
+the mean-reduced VAE loss on its rotated reconstruction).
+
 The train steps update the model's parameters and the optimizer state in
-place, and clip the gradients in place.
+place, clip the gradients in place over every parameter of the model, and
+advance `scheduler` (from `make_schedule`) once per optimizer step.
 """
 
 from __future__ import annotations
+
+from collections import defaultdict
+from typing import Any
 
 import numpy as np
 import torch
@@ -22,22 +31,60 @@ from ..data.pipeline import (
     sample_paired_draws,
 )
 from ..device import resolve_device
-from ..losses import rvae_loss
+from ..losses import rotation_diversity_loss, rvae_loss, vae_loss
 from ..metrics import latent_stats, psnr, ssim
+from ..ops.resample import rotate_image_fast
 
 __all__ = [
     "FUSED_METRIC_NAMES",
+    "FUSED_VAE_METRIC_NAMES",
+    "MetricLogger",
     "metrics_to_host",
+    "rotate_to_canonical",
+    "make_train_step",
     "make_rvae_train_step",
     "make_fused_rvae_train_step",
-    "make_fused_rvae_eval",
+    "make_fused_vae_train_step",
     "make_fused_encode",
+    "make_fused_eval",
+    "make_fused_rvae_eval",
+    "make_eval_step",
+    "make_rvae_eval_step",
+    "evaluate_fused",
+    "log_scalar_metrics_tensorboard",
+    "log_reconstructions_tensorboard",
 ]
 
 FUSED_METRIC_NAMES = (
     "loss", "recon_loss", "kld_loss", "cycle_loss", "canonical_loss",
     "rotation_std", "grad_norm",
 )
+FUSED_VAE_METRIC_NAMES = ("loss", "recon_loss", "kld_loss", "cycle_loss", "grad_norm")
+
+
+class MetricLogger:
+    """Dict-of-lists metric accumulator."""
+
+    def __init__(self):
+        self.metrics = defaultdict(list)
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            if hasattr(v, "item"):
+                v = v.item()
+            self.metrics[k].append(v)
+
+    def get_averages(self) -> dict[str, Any]:
+        return {k: float(np.mean(v)) for k, v in self.metrics.items()}
+
+    def reset(self):
+        self.metrics.clear()
+
+
+def rotate_to_canonical(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Rotate images to the canonical frame by the predicted angles (+theta,
+    reflection padding): the operation the STN applies."""
+    return rotate_image_fast(x, theta, padding_mode="reflection")
 
 
 def _on_device(model: torch.nn.Module, device) -> torch.device:
@@ -61,13 +108,15 @@ def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Te
 
 def _common_metrics(recon, x, mu, logvar, theta) -> dict[str, torch.Tensor]:
     ls = latent_stats(mu, logvar)
-    return {
+    m = {
         "psnr": psnr(recon, x),
         "ssim": ssim(recon, x),
         "latent_mean_abs": ls["latent_mean_abs"],
         "latent_std": ls["latent_std_mean"],
-        "rotation_std": torch.std(theta),
     }
+    if theta is not None:
+        m["rotation_std"] = torch.std(theta)
+    return m
 
 
 def _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
@@ -92,19 +141,86 @@ def _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
     return total, aux
 
 
-def _update(model, optimizer, total, grad_max_norm) -> torch.Tensor:
-    """Backward, global-norm clip and optimizer step; returns the reported norm."""
-    optimizer.zero_grad(set_to_none=True)
+def _update(model, optimizer, total, grad_max_norm, scheduler=None) -> torch.Tensor:
+    """Backward, global-norm clip over every parameter of the model (also those
+    the optimizer does not hold, a frozen STN's), optimizer step, then one step
+    of the schedule; returns the reported norm."""
+    for p in model.parameters():
+        p.grad = None
     total.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     gnorm = _clip_by_global_norm(grads, grad_max_norm)
     optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
     return gnorm
+
+
+def _generic_loss(model, x, beta, gamma, use_diversity, eps=None, generator=None):
+    """The unpaired objective, dispatched on the model's outputs: the
+    mean-reduced VAE loss on the (rotated) reconstruction, plus gamma times the
+    rotation-diversity term for a 5-output model when asked. Returns
+    (total, aux); aux's theta and canonical are None for a plain VAE."""
+    outputs = model(x, eps, generator)
+    if len(outputs) == 3:
+        recon, mu, logvar = outputs
+        canonical = theta = None
+    else:
+        recon, canonical, theta, mu, logvar = outputs
+    _, rl, kl = vae_loss(recon, x, mu, logvar, beta=1.0)
+    total = rl + beta * kl
+    cyc = torch.zeros((), device=x.device)
+    if use_diversity and theta is not None:
+        cyc = rotation_diversity_loss(theta)
+        total = total + gamma * cyc
+    aux = dict(recon=recon, canonical=canonical, theta=theta, mu=mu, logvar=logvar,
+               rl=rl, kl=kl, cyc=cyc)
+    return total, aux
+
+
+def make_train_step(model, optimizer, *, use_diversity: bool = False,
+                    canonical_weight: float = 0.0, grad_max_norm: float = 5.0,
+                    scheduler=None, device=None):
+    """Generic train step on an unpaired batch (a VAE, or an rVAE under the
+    mean-reduced VAE loss; with `canonical_weight` > 0 a 5-output model also
+    gets canonical_weight x MSE(canonical, rotate_to_canonical(x, theta))).
+
+    Returns step(x, beta, gamma, eps=None, generator=None) -> metrics dict of
+    0-d device tensors.
+    """
+    _on_device(model, device)
+
+    def step(x, beta, gamma, eps=None, generator=None):
+        total, aux = _generic_loss(model, x, beta, gamma, use_diversity, eps, generator)
+        canon_l = torch.zeros((), device=x.device)
+        with_canonical = aux["canonical"] is not None and canonical_weight > 0
+        if with_canonical:
+            canon_l = torch.mean((aux["canonical"] - rotate_to_canonical(x, aux["theta"])) ** 2)
+            total = total + canonical_weight * canon_l
+        gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
+        with torch.no_grad():
+            metrics = {
+                "loss": total.detach(),
+                "recon_loss": aux["rl"].detach(),
+                "kld_loss": aux["kl"].detach(),
+                "cycle_loss": aux["cyc"].detach(),
+                "canonical_loss": canon_l.detach(),
+                "grad_norm": gnorm,
+            }
+            metrics.update(_common_metrics(aux["recon"], x, aux["mu"], aux["logvar"],
+                                           aux["theta"]))
+            if with_canonical:
+                canonical_input = rotate_to_canonical(x, aux["theta"])
+                metrics["canonical_psnr"] = psnr(aux["canonical"], canonical_input)
+                metrics["canonical_ssim"] = ssim(aux["canonical"], canonical_input)
+        return metrics
+
+    return step
 
 
 def make_rvae_train_step(model, optimizer, *, use_diversity: bool = False,
                          canonical_weight: float = 0.2, grad_max_norm: float = 20.0,
-                         device=None):
+                         scheduler=None, device=None):
     """Paired rVAE train step on a given batch.
 
     Returns step(x, x_rot, angle, beta, gamma, eps=None, generator=None) ->
@@ -115,7 +231,7 @@ def make_rvae_train_step(model, optimizer, *, use_diversity: bool = False,
     def step(x, x_rot, angle, beta, gamma, eps=None, generator=None):
         total, aux = _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
                                        canonical_weight, eps, generator)
-        gnorm = _update(model, optimizer, total, grad_max_norm)
+        gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
         with torch.no_grad():
             metrics = {
                 "loss": total.detach(),
@@ -137,7 +253,7 @@ def make_rvae_train_step(model, optimizer, *, use_diversity: bool = False,
 def make_fused_rvae_train_step(model, optimizer, *, patch_size: int, padding: int, cfg,
                                margin: int, use_diversity: bool = False,
                                canonical_weight: float = 0.2, grad_max_norm: float = 20.0,
-                               normalize: bool = True, device=None):
+                               normalize: bool = True, scheduler=None, device=None):
     """Whole-epoch rVAE training: paired extraction + one optimizer step per
     row of idx_batches.
 
@@ -159,13 +275,61 @@ def make_fused_rvae_train_step(model, optimizer, *, patch_size: int, padding: in
                 )
             total, aux = _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
                                            canonical_weight, generator=generator)
-            gnorm = _update(model, optimizer, total, grad_max_norm)
+            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
             with torch.no_grad():
                 acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], aux["canon_l"],
                                     torch.std(aux["theta"]), gnorm]).detach()
         return dict(zip(FUSED_METRIC_NAMES, acc / len(idx_batches)))
 
     return step
+
+
+def make_fused_vae_train_step(model, optimizer, *, patch_size: int, padding: int, cfg,
+                              margin: int, use_diversity: bool = False,
+                              grad_max_norm: float = 5.0, normalize: bool = True,
+                              scheduler=None, device=None):
+    """Whole-epoch generic training on unpaired, augmented batches (the
+    mean-reduced VAE loss; dispatch on the model's outputs as in
+    `make_train_step`).
+
+    Returns step(frames_padded, img_idx, coords, idx_batches[S, B], generator,
+    beta, gamma, draws=None, eps=None) -> {name: 0-d device tensor}, the means
+    over the S steps. `draws` (one PairedDraws per step) and `eps` (one
+    [B, latent] tensor per step) replace the generator's draws, to reproduce
+    another implementation's randomness.
+    """
+    dev = _on_device(model, device)
+
+    def step(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma,
+             draws: list[PairedDraws] | None = None, eps=None):
+        acc = torch.zeros(len(FUSED_VAE_METRIC_NAMES), device=dev)
+        for i, idx in enumerate(idx_batches):
+            with torch.no_grad():
+                x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
+                                  normalize=normalize, margin=margin, cfg=cfg,
+                                  generator=generator,
+                                  draws=None if draws is None else draws[i])
+            total, aux = _generic_loss(model, x, beta, gamma, use_diversity,
+                                       None if eps is None else eps[i], generator)
+            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
+            with torch.no_grad():
+                acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], gnorm]).detach()
+        return dict(zip(FUSED_VAE_METRIC_NAMES, acc / len(idx_batches)))
+
+    return step
+
+
+def _generic_eval_metrics(model, x, beta, gamma, use_diversity, canonical_weight, eps,
+                          generator):
+    total, aux = _generic_loss(model, x, beta, gamma, use_diversity, eps, generator)
+    metrics = {"loss": total, "recon_loss": aux["rl"], "kld_loss": aux["kl"],
+               "cycle_loss": aux["cyc"]}
+    metrics.update(_common_metrics(aux["recon"], x, aux["mu"], aux["logvar"], aux["theta"]))
+    if aux["canonical"] is not None and canonical_weight > 0:
+        canonical_input = rotate_to_canonical(x, aux["theta"])
+        metrics["canonical_psnr"] = psnr(aux["canonical"], canonical_input)
+        metrics["canonical_ssim"] = ssim(aux["canonical"], canonical_input)
+    return metrics
 
 
 def _rvae_eval_metrics(model, x, x_rot, angle, beta, gamma, use_diversity, canonical_weight,
@@ -219,6 +383,92 @@ def make_fused_rvae_eval(model, *, patch_size: int, padding: int, cfg, margin: i
     return evaluate
 
 
+def make_eval_step(model, *, use_diversity: bool = False, canonical_weight: float = 0.0,
+                   device=None):
+    """Generic eval step: step(x, beta, gamma, eps=None, generator=None) ->
+    metrics dict, without gradients."""
+    _on_device(model, device)
+
+    @torch.no_grad()
+    def step(x, beta, gamma, eps=None, generator=None):
+        return _generic_eval_metrics(model, x, beta, gamma, use_diversity, canonical_weight,
+                                     eps, generator)
+
+    return step
+
+
+def make_rvae_eval_step(model, *, use_diversity: bool = False, canonical_weight: float = 0.2,
+                        device=None):
+    """Paired rVAE eval step: step(x, x_rot, angle, beta, gamma, eps=None,
+    generator=None) -> metrics dict, without gradients."""
+    _on_device(model, device)
+
+    @torch.no_grad()
+    def step(x, x_rot, angle, beta, gamma, eps=None, generator=None):
+        return _rvae_eval_metrics(model, x, x_rot, angle, beta, gamma, use_diversity,
+                                  canonical_weight, eps, generator)
+
+    return step
+
+
+def make_fused_eval(model, *, patch_size: int, padding: int, margin: int,
+                    use_diversity: bool = False, canonical_weight: float = 0.0,
+                    normalize: bool = True, device=None):
+    """Generic eval over [S, B] index batches: un-augmented extraction and the
+    eval metrics, without gradients.
+
+    Returns eval(frames_padded, img_idx, coords, idx_batches, generator, beta,
+    gamma, eps=None) -> {name: [S] device tensor}; `eps` (one [B, latent]
+    tensor per batch) replaces the generator's noise.
+    """
+    _on_device(model, device)
+
+    @torch.no_grad()
+    def evaluate(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma, eps=None):
+        per_batch = []
+        for i, idx in enumerate(idx_batches):
+            x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
+                              normalize=normalize, margin=margin)
+            per_batch.append(_generic_eval_metrics(
+                model, x, beta, gamma, use_diversity, canonical_weight,
+                None if eps is None else eps[i], generator,
+            ))
+        return {k: torch.stack([m[k] for m in per_batch]) for k in per_batch[0]}
+
+    return evaluate
+
+
+def evaluate_fused(fused_eval, site_table, val_idx, batch_size: int, generator,
+                   metric_logger: MetricLogger | None = None, beta: float = 1.0,
+                   gamma: float = 0.0, prefix: str = "val_") -> dict[str, float]:
+    """Run a fused eval over all val sites: the full batches, then the ragged
+    tail (val size not divisible by batch_size) as one smaller batch. Batches
+    weigh equally, the tail too."""
+    frames_padded, img_idx, coords, _ = site_table
+    val_idx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long, device=frames_padded.device)
+    n = len(val_idx)
+    bs = min(batch_size, n)
+    n_full = n // bs
+    per_batch = []
+    if n_full > 0:
+        main = val_idx[: n_full * bs].reshape(n_full, bs)
+        per_batch.append(fused_eval(frames_padded, img_idx, coords, main, generator, beta, gamma))
+    if n_full * bs < n:
+        tail = val_idx[n_full * bs :].reshape(1, -1)
+        per_batch.append(fused_eval(frames_padded, img_idx, coords, tail, generator, beta, gamma))
+    sums: dict[str, float] = defaultdict(float)
+    count = 0
+    for d in per_batch:
+        d = metrics_to_host(d)  # one transfer per fused-eval dict
+        count += len(next(iter(d.values())))
+        for k, v in d.items():
+            sums[k] += float(np.sum(v))
+    avg = {prefix + k: v / count for k, v in sums.items()}
+    if metric_logger is not None:
+        metric_logger.update(**avg)
+    return avg
+
+
 def make_fused_encode(model, *, patch_size: int, padding: int, margin: int,
                       normalize: bool = True, device=None):
     """Batched encode: un-augmented extraction + encoder over [S, B] indices.
@@ -234,7 +484,11 @@ def make_fused_encode(model, *, patch_size: int, padding: int, margin: int,
         for idx in idx_batches:
             x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
                               normalize=normalize, margin=margin)
-            outs.append(model.encode(x))
+            out = model.encode(x)
+            if len(out) == 2:  # a plain VAE has no angle
+                out = (*out, torch.zeros((out[0].shape[0], 1), dtype=out[0].dtype,
+                                         device=out[0].device))
+            outs.append(out)
         mus, logvars, thetas = zip(*outs)
         return torch.cat(mus), torch.cat(logvars), torch.cat(thetas)
 
@@ -254,3 +508,48 @@ def metrics_to_host(metrics: dict) -> dict[str, np.ndarray]:
         out[n] = flat[off : off + v.numel()].reshape(tuple(v.shape))
         off += v.numel()
     return out
+
+
+# TensorBoard logging (the JAX package's tag schema)
+
+def _make_grid(images: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
+    """torchvision.utils.make_grid for [N, 1, H, W] arrays -> [H', W']."""
+    n, h, w = images.shape[0], images.shape[2], images.shape[3]
+    ncol = min(nrow, n)
+    nr = -(-n // ncol)
+    grid = np.zeros((nr * (h + pad) + pad, ncol * (w + pad) + pad), dtype=np.float32)
+    for i in range(n):
+        r, c = divmod(i, ncol)
+        y0, x0 = pad + r * (h + pad), pad + c * (w + pad)
+        grid[y0 : y0 + h, x0 : x0 + w] = images[i, 0]
+    return grid
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def log_reconstructions_tensorboard(writer, x, recon, epoch: int, tag: str = "reconstructions",
+                                    max_images: int = 8, canonical=None,
+                                    canonical_input=None) -> None:
+    """[original | reconstruction | abs diff] grids (and the canonical triplet)."""
+    x, recon = _host(x[:max_images]), _host(recon[:max_images])
+    grid = np.concatenate([_make_grid(x, max_images), _make_grid(recon, max_images),
+                           _make_grid(np.abs(x - recon), max_images)], axis=0)
+    writer.add_image(tag, grid[None, :, :], epoch)
+    if canonical is not None and canonical_input is not None:
+        c, ci = _host(canonical[:max_images]), _host(canonical_input[:max_images])
+        cgrid = np.concatenate([_make_grid(ci, max_images), _make_grid(c, max_images),
+                                _make_grid(np.abs(ci - c), max_images)], axis=0)
+        writer.add_image(f"{tag}_canonical", cgrid[None, :, :], epoch)
+
+
+def log_scalar_metrics_tensorboard(writer, metrics: dict[str, float], epoch: int) -> None:
+    """train_x -> train/x, val_x -> val/x tags."""
+    for key, value in metrics.items():
+        if key.startswith("train_"):
+            writer.add_scalar(f"train/{key[6:]}", value, epoch)
+        elif key.startswith("val_"):
+            writer.add_scalar(f"val/{key[4:]}", value, epoch)
+        else:
+            writer.add_scalar(key, value, epoch)

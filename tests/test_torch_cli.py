@@ -1,0 +1,202 @@
+"""The port's training entry points (livae_tpu_torch.scripts.train_rvae and
+train_vae): the parsers against the JAX scripts' parsers, and run_training
+in-process on the CPU at a small size (one 512-pixel synthetic frame, patch
+32, padding 8, batch 64, latent 8, f32)."""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from livae_tpu.utils import checkpoint as jc
+from livae_tpu_torch.models.rvae import RVAE
+from livae_tpu_torch.models.vae import VAE
+from livae_tpu_torch.scripts import train_rvae, train_vae
+from livae_tpu_torch.utils import checkpoint as tc
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = ["--cpu", "--no-amp", "--synthetic", "1", "--synthetic-size", "512",
+         "--patch-size", "32", "--padding", "8", "--batch-size", "64", "--latent-dim", "8",
+         "--no-tensorboard"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _surface(parser):
+    """{option strings: (dest, default, nargs, type name, const)} of a parser."""
+    out = {}
+    for a in parser._actions:
+        if a.option_strings and a.dest != "help":
+            out[tuple(a.option_strings)] = (a.dest, a.default, a.nargs,
+                                            getattr(a.type, "__name__", None), a.const)
+    return out
+
+
+@pytest.mark.parametrize("name", ["train_rvae", "train_vae"])
+def test_parser_has_the_jax_parsers_options_and_defaults(monkeypatch, name):
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    jax_script = __import__(name)
+    ours = {"train_rvae": train_rvae, "train_vae": train_vae}[name].build_argparser()
+    theirs = jax_script.build_argparser()
+    assert _surface(ours) == _surface(theirs)
+    assert vars(ours.parse_args([])) == vars(theirs.parse_args([]))
+
+
+def _run_rvae(tmp_path, name, *extra):
+    ckpt = tmp_path / name / "rvae.pt"
+    args = train_rvae.build_argparser().parse_args(
+        [*SMALL, "--seed", "3", "--checkpoint", str(ckpt), *extra])
+    return train_rvae.run_training(args), ckpt
+
+
+def test_train_rvae_writes_reference_checkpoints(tmp_path, capsys):
+    out, ckpt = _run_rvae(tmp_path, "a", "--epochs", "2", "--no-per-patch-norm",
+                          "--beta-annealing", "--beta-warmup-epochs", "1",
+                          "--beta-annealing-epochs", "2", "--stn-lr", "1e-4")
+    final = ckpt.with_name("rvae_final.pt")
+    assert ckpt.exists() and final.exists() and out["final_checkpoint"] == str(final)
+    assert [e["beta"] for e in out["epochs"]] == [0.0, 0.0]
+    assert all(np.isfinite(v) for e in out["epochs"] for v in e["metrics"].values())
+    assert {"train_loss", "train_grad_norm", "val_loss", "val_psnr", "val_canonical_ssim",
+            "val_rotation_std"} <= set(out["epochs"][0]["metrics"])
+    steps = out["epochs"][0]["steps"]
+    assert steps == out["sites"][1] // 64 and out["scheduler"].last_epoch == 2 * steps
+    # the two cosine schedules, read at the last step taken
+    last = 2 * steps - 1
+    want = [lr * 0.5 * (1 + np.cos(np.pi * last / (2 * steps))) for lr in (1e-3, 1e-4)]
+    np.testing.assert_allclose(out["epochs"][-1]["lr_last_step"], want, rtol=1e-9)
+    # no kernel launch on the CPU
+    assert all(v == 0 for e in out["epochs"] for v in e["launches"].values())
+
+    # the files load through the JAX loader, and carry the run's arguments
+    for path in (ckpt, final):
+        params, payload = jc.load_reference_checkpoint(path, jc.rvae_spec(32, 8))
+        assert set(payload) == {"model_state", "optimizer_state", "epoch", "best_val", "args"}
+        assert payload["args"]["no_per_patch_norm"] is True
+        assert payload["args"]["patch_size"] == 32 and payload["args"]["seed"] == 3
+        assert params["params"]["encoder"]["rotation_stn"]["loc_fc1"]["kernel"].shape == (32, 2)
+    assert payload["epoch"] == 1 and payload["best_val"] == out["best_val"]
+    # a fresh model loaded from _final encodes bit-equal to the trained one
+    state, _ = tc.load_reference_checkpoint(final)
+    fresh = RVAE(8, 1, 32, device="cpu")
+    fresh.load_state_dict(state, strict=True)
+    x = torch.rand((4, 1, 32, 32), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert all(torch.equal(a, b) for a, b in zip(fresh.encode(x), out["model"].encode(x)))
+    assert "saved best checkpoint" in capsys.readouterr().out
+
+
+def test_resume_equals_a_straight_run_bit_for_bit(tmp_path, capsys, monkeypatch):
+    """One epoch, an interruption (--stop-after-epochs 1), then --resume, against
+    two straight epochs: the same weights, optimizer state and digests."""
+    monkeypatch.setenv("LIVAE_PARAM_HASH", "1")
+    straight, a_ckpt = _run_rvae(tmp_path, "a", "--epochs", "2", "--stn-lr", "1e-4")
+    first, b_ckpt = _run_rvae(tmp_path, "b", "--epochs", "2", "--stn-lr", "1e-4", "--resume",
+                              "--stop-after-epochs", "1")
+    assert len(first["epochs"]) == 1 and (tmp_path / "b" / "resume_rvae" / "step_0.pt").exists()
+    capsys.readouterr()
+    resumed, _ = _run_rvae(tmp_path, "b", "--epochs", "2", "--stn-lr", "1e-4", "--resume")
+    printed = capsys.readouterr().out
+    assert "Resumed from" in printed and "at epoch 1" in printed
+    assert resumed["start_epoch"] == 1 and [e["epoch"] for e in resumed["epochs"]] == [1]
+    assert resumed["resumed_digest"] == first["epochs"][0]["digest"]
+    assert f"PARAMHASH resumed {resumed['resumed_digest']}" in printed
+    assert [e["digest"] for e in straight["epochs"]] == [first["epochs"][0]["digest"],
+                                                         resumed["epochs"][0]["digest"]]
+    a = tc.load_checkpoint(a_ckpt.with_name("rvae_final.pt"))["model_state"]
+    b = tc.load_checkpoint(b_ckpt.with_name("rvae_final.pt"))["model_state"]
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), f"param {k} diverged"
+    assert resumed["epochs"][0]["metrics"] == straight["epochs"][1]["metrics"]
+
+    # a changed seed cannot resume
+    with pytest.raises(SystemExit, match="differs from the checkpoint's seed 3"):
+        _run_rvae(tmp_path, "b", "--epochs", "2", "--stn-lr", "1e-4", "--resume", "--seed", "4")
+
+
+def test_resume_without_a_checkpoint_starts_fresh(tmp_path, capsys):
+    out, _ = _run_rvae(tmp_path, "c", "--epochs", "1", "--resume")
+    assert "no checkpoint in" in capsys.readouterr().out and out["start_epoch"] == 0
+    assert (tmp_path / "c" / "resume_rvae" / "step_0.pt").exists()
+
+
+def test_freeze_stn_leaves_the_stns_bits(tmp_path):
+    stn_ckpt = tmp_path / "stn.pt"
+    donor = RVAE(8, 1, 32, device="cpu", generator=torch.Generator().manual_seed(9))
+    tc.save_checkpoint(stn_ckpt, {"rotation_stn": {
+        f"_orig_mod.{k}": v for k, v in donor.encoder.rotation_stn.state_dict().items()}})
+    out, _ = _run_rvae(tmp_path, "f", "--epochs", "1", "--freeze-stn",
+                       "--stn-checkpoint", str(stn_ckpt))
+    got = out["model"].encoder.rotation_stn.state_dict()
+    for k, v in donor.encoder.rotation_stn.state_dict().items():
+        assert torch.equal(got[k], v), k  # loaded, then untouched by training
+    assert len(out["optimizer"].param_groups) == 1
+    held = {id(p) for g in out["optimizer"].param_groups for p in g["params"]}
+    assert not any(id(p) in held for p in out["model"].encoder.rotation_stn.parameters())
+    assert np.isfinite(out["epochs"][0]["metrics"]["train_grad_norm"])
+
+
+@pytest.mark.parametrize("flags", [["--num-devices", "2"], ["--model-parallel", "2"],
+                                   ["--num-devices", "4", "--model-parallel", "2"]])
+@pytest.mark.parametrize("script", [train_rvae, train_vae], ids=["rvae", "vae"])
+def test_more_than_one_device_exits_with_the_roadmap_item(script, flags):
+    args = script.build_argparser().parse_args([*SMALL, *flags])
+    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 15"):
+        script.run_training(args)
+
+
+def test_auto_devices_and_ignored_flags(tmp_path, capsys):
+    out, _ = _run_rvae(tmp_path, "n", "--epochs", "1", "--num-devices", "auto",
+                       "--num-workers", "2", "--compile", "--exact-resample")
+    printed = capsys.readouterr().out
+    assert "--num-workers is accepted and ignored" in printed
+    assert "--compile is accepted and ignored" in printed
+    assert out["model"].fast_resample is False
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    no_cpu = [a for a in SMALL if a != "--cpu"]
+    for script in (train_rvae, train_vae):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.run_training(script.build_argparser().parse_args(no_cpu))
+
+
+def test_train_vae_one_epoch(tmp_path, capsys):
+    ckpt = tmp_path / "v" / "vae.pt"
+    args = train_vae.build_argparser().parse_args(
+        [*SMALL, "--epochs", "1", "--beta-annealing", "--checkpoint", str(ckpt)])
+    out = train_vae.run_training(args)
+    assert out["epochs"][0]["beta"] == pytest.approx(0.1)  # (epoch + 1) / 10
+    assert all(np.isfinite(v) for v in out["epochs"][0]["metrics"].values())
+    assert "val_rotation_std" not in out["epochs"][0]["metrics"]
+    final = ckpt.with_name("vae_final.pt")
+    assert ckpt.exists() and final.exists()
+    params, payload = jc.load_reference_checkpoint(final, jc.vae_spec(32, 8))
+    assert payload["args"]["scheduler_t0"] == 10 and payload["args"]["no_per_patch_norm"] is False
+    assert params["params"]["decoder"]["deconv0"]["kernel"].shape == (4, 4, 256, 128)
+    state, _ = tc.load_reference_checkpoint(ckpt)
+    fresh = VAE(8, 1, 32, device="cpu")
+    fresh.load_state_dict(state, strict=True)
+    assert "VAE: " in capsys.readouterr().out
+
+
+def test_tensorboard_and_profile_outputs(tmp_path):
+    log_dir = tmp_path / "runs"
+    flags = [a for a in SMALL if a != "--no-tensorboard"]
+    args = train_rvae.build_argparser().parse_args(
+        [*flags, "--epochs", "2", "--vis-every", "1", "--vis-samples", "4", "--profile",
+         "--log-dir", str(log_dir), "--checkpoint", str(tmp_path / "t" / "rvae.pt")])
+    train_rvae.run_training(args)
+    assert (log_dir / "profile" / "trace.json").stat().st_size > 0
+    assert any(p.name.startswith("events.out.tfevents") for p in log_dir.rglob("*"))

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone and never falls back silently.
 
 * Importing livae_tpu_torch, every submodule and chip_smoke.py loads no JAX
-  and nothing of livae_tpu, and builds no kernel.
+  and nothing of livae_tpu, and builds no kernel; it also needs none of the
+  optional packages (h5py, tensorboardX, matplotlib), which are imported
+  where they are used.
 * Every entry point raises when CUDA is wanted by default and absent.
 * rot3 and the fractional shift on a CPU tensor take the plain version and
   launch nothing; the kernel paths refuse CPU tensors; a failed build raises.
@@ -23,16 +25,32 @@ REPO = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
 import importlib, pkgutil, sys
+
+
+class _Blocked:
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "livae_tpu", "h5py", "tensorboardX",
+               "matplotlib")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.BLOCKED:
+            raise ImportError(f"{name} is blocked in this probe")
+
+
+sys.meta_path.insert(0, _Blocked())
 import livae_tpu_torch
 for m in pkgutil.walk_packages(livae_tpu_torch.__path__, "livae_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "livae_tpu"))
+names = sorted(m.name for m in pkgutil.walk_packages(livae_tpu_torch.__path__, "livae_tpu_torch."))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in _Blocked.BLOCKED)
 from livae_tpu_torch.ops import _build
 print("BAD", bad)
 print("LIBS", sorted(_build._LIBS))
+print("MODULES", " ".join(names))
 """
+
+NEW_MODULES = ["bench", "data.h5", "scripts._common", "scripts.train_rvae", "scripts.train_vae",
+               "utils.resume", "models.vae", "train.state", "utils.checkpoint"]
 
 
 def test_port_imports_no_jax_and_builds_nothing():
@@ -41,6 +59,20 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "LIBS []" in out.stdout, out.stdout
+    walked = out.stdout.split("MODULES ", 1)[1].split()
+    assert {f"livae_tpu_torch.{m}" for m in NEW_MODULES} <= set(walked)
+
+
+def test_optional_packages_are_imported_where_they_are_used():
+    """h5py, tensorboardX and matplotlib appear only inside functions."""
+    import ast
+
+    for path in sorted((REPO / "livae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in ast.parse(path.read_text()).body:  # module-level statements only
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
+                assert not any(n.split(".")[0] in ("h5py", "tensorboardX", "matplotlib")
+                               for n in names), f"{path.name} imports {names} at module level"
 
 
 @pytest.fixture

@@ -106,6 +106,86 @@ def test_encode_extraction_matches(frames, normalize):
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=ATOL)
 
 
+def _unpaired_draws(key, B, cfg):
+    """The draws _extract_batch_impl makes from `key`, as PairedDraws."""
+    scale, angle, fh, fv, jy, jx = (np.array(v) for v in jp._sample_aug(key, B, cfg))
+    t = torch.from_numpy
+    return tp.PairedDraws(t(scale), t(fh), t(fv), t(jy).long(), t(jx).long(), t(angle))
+
+
+@pytest.mark.parametrize("rotation", [False, True], ids=["folded", "rotation"])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_augmented_unpaired_extraction_matches(frames, rotation, normalize):
+    """Augmented extract_batch against _extract_batch_impl with the draws of
+    _sample_aug injected: flips and jitter folded into the grid, or, with
+    cfg.rotation, scale/translate, then the rotation, then flips and roll."""
+    fp_j, fp_t, img_idx, centers, margin = frames
+    cfg_j = jp.AugmentConfig(rotation=rotation)
+    key = jax.random.key(13)
+    want = jp._extract_batch_impl(
+        fp_j, jnp.asarray(img_idx), jnp.asarray(centers), key, PATCH, PAD,
+        cfg=cfg_j, normalize=normalize, margin=margin,
+    )
+    draws = _unpaired_draws(key, len(img_idx), cfg_j)
+    assert draws.flip_h.any() and draws.flip_v.any() and (draws.jy != 0).any()
+    got = tp.extract_batch(
+        fp_t, torch.from_numpy(img_idx).long(), torch.from_numpy(centers), PATCH, PAD,
+        normalize=normalize, margin=margin, cfg=tp.AugmentConfig(rotation=rotation), draws=draws,
+    )
+    assert tuple(got.shape) == (len(img_idx), 1, PATCH, PATCH)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=ATOL)
+
+
+def test_rotation_config_without_draws_matches(frames):
+    """cfg.rotation with no key: the identity draws, still through the
+    rotation (by angle 0) and the flips-and-jitter stage."""
+    fp_j, fp_t, img_idx, centers, margin = frames
+    want = jp._extract_batch_impl(
+        fp_j, jnp.asarray(img_idx), jnp.asarray(centers), None, PATCH, PAD,
+        cfg=jp.AugmentConfig(rotation=True), normalize=True, margin=margin,
+    )
+    got = tp.extract_batch(fp_t, torch.from_numpy(img_idx).long(), torch.from_numpy(centers),
+                           PATCH, PAD, margin=margin, cfg=tp.AugmentConfig(rotation=True))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=ATOL)
+
+
+def test_extract_batch_refuses_draws_without_cfg(frames):
+    """Draws say nothing of the order in which to apply them: cfg does."""
+    _, fp_t, img_idx, centers, margin = frames
+    draws = _unpaired_draws(jax.random.key(13), len(img_idx), jp.AugmentConfig())
+    with pytest.raises(ValueError, match="draws need the cfg"):
+        tp.extract_batch(fp_t, torch.from_numpy(img_idx).long(), torch.from_numpy(centers),
+                         PATCH, PAD, margin=margin, draws=draws)
+
+
+def test_flips_and_jitter_is_flip_then_roll(rng):
+    p = torch.from_numpy(rng.random((3, 6, 5)).astype(np.float32))
+    fh = torch.tensor([True, False, True])
+    fv = torch.tensor([False, True, True])
+    jy, jx = torch.tensor([2, -1, 0]), torch.tensor([-3, 0, 4])
+    got = tp._flips_and_jitter(p, fh, fv, jy, jx)
+    for b in range(3):
+        q = p[b]
+        q = q.flip(1) if fh[b] else q
+        q = q.flip(0) if fv[b] else q
+        assert torch.equal(got[b], torch.roll(q, (int(jy[b]), int(jx[b])), (0, 1)))
+
+
+def test_extract_batch_generator_augments_and_is_repeatable(frames):
+    _, fp_t, img_idx, centers, margin = frames
+    args = (fp_t, torch.from_numpy(img_idx).long(), torch.from_numpy(centers), PATCH, PAD)
+    plain = tp.extract_batch(*args, margin=margin)
+    cfg = tp.AugmentConfig(rotation=True)
+    a = tp.extract_batch(*args, margin=margin, cfg=cfg,
+                         generator=torch.Generator().manual_seed(3))
+    b = tp.extract_batch(*args, margin=margin, cfg=cfg,
+                         generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a, b) and not torch.equal(a, plain)
+    # a generator without a cfg augments nothing
+    assert torch.equal(tp.extract_batch(*args, margin=margin,
+                                        generator=torch.Generator().manual_seed(3)), plain)
+
+
 def test_generator_draws_are_in_range():
     g = torch.Generator().manual_seed(0)
     d = tp.sample_paired_draws(4096, tp.AugmentConfig(), g, "cpu")
