@@ -11,8 +11,8 @@ Run from the repository root:  python3 chip_smoke.py
    versions are timed with CUDA events:
    * rot3: the forward and backward kernels against `rot3_reference` and
      autograd through it (forward and dx bit-equal), also at the shapes the
-     other driven paths give it ([512, 180, 180], PatchDataset's rotation;
-     [193, 256, 256], train_rvae's ragged val batch) and at edge canvases
+     other driven paths give it (PATH_SHAPES: PatchDataset's rotation, the
+     ragged val batch, the analysis's batches and probes) and at edge canvases
      [3, P, P] for P in 2, 33, 130, 255 and MAX_P; the dx-free backward gives
      the deltas' bits; times for each cluster size that fits;
    * shear (kernel C), along both axes: the forward against
@@ -53,7 +53,23 @@ Run from the repository root:  python3 chip_smoke.py
      printed, with beta 10 and a finite loss;
    * `livae_tpu_torch.scripts.train_vae`, 3 epochs: no kernel launch, finite
      metrics, checkpoints that load strictly.
-8. Three fused VAE steps on `PatchDataset(patch_size=128)` (rotation
+8. The analysis path, on train_rvae's `_final` checkpoint and the same two
+   frames, at the scripts' defaults (float32, padding 16):
+   * analysis: `visualizations.collect_stats` over every site at batch 256
+     (2 rot3 forwards per batch, the ragged tail too), twice, with the encode
+     rate; `verify_rotational_invariance` on 32 probes (3 rot3 forwards);
+     collect_stats' mu against `make_fused_encode`'s, and one batch with the
+     noise injected against the CPU port, at 2e-4; the t-SNE embedding, the
+     KMeans clustering and the plots of `visualizations` and
+     `plot_tsne_by_image` where sklearn and matplotlib are importable, else a
+     line naming each step skipped;
+   * rotation_invariance: `evaluate_rotation_invariance` on 64 probes, eight
+     angles (4 rot3 forwards each), the noise injected, against the CPU port
+     at 2e-4;
+   * pretrain_stn: `run_pretrain` for 2 epochs (1 rot3 forward per batch, no
+     backward), the checkpoint holding exactly `stn_spec`'s keys, then
+     `train_rvae --stn-checkpoint` for an epoch from it.
+9. Three fused VAE steps on `PatchDataset(patch_size=128)` (rotation
    augmentation: 1 rot3 forward per step, no backward); the f32 VAE on the
    card against the CPU port at 2e-4; `python -m livae_tpu_torch.bench` as a
    subprocess, whose stdout must be one JSON line.
@@ -96,8 +112,16 @@ from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
 from livae_tpu_torch.ops import shear as SH
 from livae_tpu_torch.ops.resample import aligned_margin, rotate_image_fast
-from livae_tpu_torch.scripts import train_rvae, train_vae
+from livae_tpu_torch.scripts import (
+    plot_tsne_by_image,
+    pretrain_stn,
+    train_rvae,
+    train_vae,
+    verify_rotational_invariance,
+    visualizations,
+)
 from livae_tpu_torch.train.engine import (
+    evaluate_rotation_invariance,
     make_fused_encode,
     make_fused_rvae_eval,
     make_fused_rvae_train_step,
@@ -105,7 +129,11 @@ from livae_tpu_torch.train.engine import (
     metrics_to_host,
 )
 from livae_tpu_torch.train.state import make_optimizer
-from livae_tpu_torch.utils.checkpoint import load_checkpoint, load_reference_checkpoint
+from livae_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_reference_checkpoint,
+    stn_spec,
+)
 
 SHAPE = (512, 256, 256)  # rot3's canvas on the main path at batch 512, patch 128
 PATCH, LATENT, BATCH, PADDING = 128, 16, 512, 32
@@ -113,8 +141,10 @@ STEPS_PER_EPOCH, EPOCHS, VAL_BATCHES, ENCODE_STEPS = 6, 2, 2, 4
 EXACT_STEPS = 3
 PATCH_DATASET_STEPS = 3
 # the entry points' data: two bench frames, a quarter of the sites held out
-CLI_DATA = ["--synthetic", "2", "--synthetic-size", "1024", "--val-split", "0.25",
-            "--no-tensorboard"]
+FRAMES = ["--synthetic", "2", "--synthetic-size", "1024"]
+CLI_DATA = [*FRAMES, "--val-split", "0.25", "--no-tensorboard"]
+ANALYSIS_BATCH, INVARIANCE_PROBES, ROTATION_PROBES = 256, 32, 64  # the scripts' defaults
+PRETRAIN_EPOCHS = 2
 NO_LAUNCH = {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -172,10 +202,15 @@ def _deltas(kind: str, gen, B: int, P: int):
 
 EDGE_B, EDGE_P = 3, (2, 33, 130, 255, R.MAX_P)  # ragged bands, clusters below 8
 # rot3's other shapes on the driven paths: the canvas of PatchDataset's rotation
-# (padded patch 136 plus a margin of 136 // 6 each side) and the ragged last val
-# batch of train_rvae (705 val sites at batch 512); the phases that drive them
-# check that their shape is held here
-PATH_SHAPES = [(512, 180, 180), (193, 256, 256)]
+# (padded patch 136 plus a margin of 136 // 6 each side), the ragged last val
+# batch of train_rvae and pretrain_stn (705 val sites at batch 512), the
+# analysis's batches of 256 (the STN's and the inverse rotation) and its ragged
+# tail (225 of the 3041 sites the two frames give at padding 16), and the probes
+# of check_invariance and evaluate_rotation_invariance. The pretraining's train
+# batches are SHAPE. The phases that drive them check that their shape is held
+# here.
+PATH_SHAPES = [(512, 180, 180), (193, 256, 256), (256, 256, 256), (225, 256, 256),
+               (INVARIANCE_PROBES, 256, 256), (ROTATION_PROBES, 256, 256)]
 
 
 def _rot3_errors(x, w, d_row, d_col):
@@ -618,6 +653,18 @@ def bench_phase():
     return results, got
 
 
+def _quiet(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with what it prints passed through once it returns
+    (or fails); returns (result, what it printed)."""
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = fn(*args, **kwargs)
+    finally:
+        sys.stdout.write(printed.getvalue())
+    return out, printed.getvalue()
+
+
 def run_cli(script, argv):
     """`script.run_training(args)` in-process on parsed arguments, with the
     launch counters zeroed just before and read just after. Returns (result,
@@ -625,17 +672,12 @@ def run_cli(script, argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     args = script.build_argparser().parse_args(argv)
-    printed = io.StringIO()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    try:
-        with contextlib.redirect_stdout(printed):
-            out = script.run_training(args)
-    finally:
-        sys.stdout.write(printed.getvalue())
+    out, printed = _quiet(script.run_training, args)
     torch.cuda.synchronize()
-    return out, counts(), printed.getvalue(), torch.cuda.max_memory_allocated() / 2**30
+    return out, counts(), printed, torch.cuda.max_memory_allocated() / 2**30
 
 
 def _epoch_rates(out, batch: int = BATCH):
@@ -832,6 +874,236 @@ def vae_agreement_phase():
     check(worst <= 2e-4, "VAE on the card disagrees with the CPU")
 
 
+def _missing(*modules) -> list[str]:
+    """The modules of `modules` that cannot be imported here, each with why."""
+    missing = []
+    for name in modules:
+        try:
+            __import__(name)
+        except ImportError as e:
+            missing.append(f"{name} ({e})")
+    return missing
+
+
+def analysis_phase(tmp: Path, final: Path):
+    """The analysis scripts on train_rvae's _final checkpoint and the two
+    frames, at their defaults (padding 16, batch 256, float32): every site
+    encoded by `collect_stats` twice (the first call finds cuDNN's plans),
+    then `verify_rotational_invariance` on 32 probes, with the launches of the
+    three counted; then the t-SNE embedding, the KMeans cluster maps and the
+    scripts' plots where sklearn and matplotlib are importable."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as a user runs it
+    argv = [*FRAMES, "--checkpoint", str(final), "--plots-dir", str(tmp / "plots")]
+    args = visualizations.build_argparser().parse_args(argv)
+    t0 = time.perf_counter()
+    (model, is_rvae, ds), _ = _quiet(visualizations.load_for_analysis, args, None)
+    load_s = time.perf_counter() - t0
+    check(is_rvae and model.patch_size == PATCH and model.latent_dim == LATENT,
+          "the analysis did not load train_rvae's rVAE")
+    n = len(ds)
+    nb = -(-n // ANALYSIS_BATCH)
+    for b in {ANALYSIS_BATCH, n % ANALYSIS_BATCH or ANALYSIS_BATCH}:
+        check((b, *SHAPE[1:]) in PATH_SHAPES,
+              f"the kernel phase did not hold rot3 at the analysis's {[b, *SHAPE[1:]]}")
+
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        mu, logvar, rec_err, idx_map = visualizations.collect_stats(model, ds, ANALYSIS_BATCH,
+                                                                    is_rvae)
+        times.append(time.perf_counter() - t0)  # ends in the read of the results
+    results, printed = _quiet(verify_rotational_invariance.main,
+                              [*FRAMES, "--checkpoint", str(final)])
+    torch.cuda.synchronize()
+    launches = counts()
+    # 2 rot3 forwards per batch (the STN's rotation and the inverse rotation),
+    # 3 for check_invariance (the rot90 of the probes and two encodes)
+    want = {**NO_LAUNCH, "rot3_fwd": 2 * 2 * nb + 3}
+    check(launches == want, f"analysis launches {launches}, expected {want}")
+    check(mu.shape == (n, LATENT) and logvar.shape == (n, LATENT) and rec_err.shape == (n,)
+          and len(idx_map) == n, "collect_stats shapes")
+    check(bool(np.isfinite(mu).all() and np.isfinite(logvar).all()
+               and np.isfinite(rec_err).all()), "collect_stats outputs not finite")
+    last = len(ds.sample_coords) - 1
+    check(idx_map[0] == (0, 0) and idx_map[-1] == (last, len(ds.sample_coords[last]) - 1),
+          "collect_stats index map")
+    inv = results[0]
+    check(math.isfinite(inv["cosine_similarity"]) and "rotation-invariant" in inv["verdict"],
+          f"check_invariance {inv}")
+
+    # the same sites through make_fused_encode (the fused encode of the train path)
+    frames_padded, img_idx, coords, margin = ds.device_site_table
+    encode = make_fused_encode(model, patch_size=PATCH, padding=args.padding, margin=margin,
+                               normalize=ds.normalize, device=ds.device)
+    sites = torch.arange(n, device="cuda")
+    full = (n // ANALYSIS_BATCH) * ANALYSIS_BATCH
+    mu_enc = torch.cat([
+        encode(frames_padded, img_idx, coords, sites[:full].reshape(-1, ANALYSIS_BATCH))[0],
+        encode(frames_padded, img_idx, coords, sites[full:].reshape(1, -1))[0],
+    ]).cpu().numpy()
+    e_enc = float(np.abs(mu_enc - mu).max())
+    print(f"analysis: collect_stats mu vs make_fused_encode mu, max_abs_err {e_enc:.3e} "
+          f"(tol 2e-4)")
+    check(e_enc <= 2e-4, "collect_stats and make_fused_encode disagree")
+
+    # one batch with the noise injected, card against the CPU port, in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = visualizations.load_model_from_checkpoint(str(final), None, "cpu")[0]
+    x = ds.batch_at(np.arange(ROTATION_PROBES))
+    eps = torch.randn((ROTATION_PROBES, LATENT), generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        got = visualizations._batch_stats(model, x, True, eps.cuda())
+        want_cpu = visualizations._batch_stats(cpu_model, x.cpu(), True, eps)
+    e_cpu = {name: (g.cpu() - w).abs().max().item()
+             for name, g, w in zip(("mu", "logvar", "rec_err"), got, want_cpu)}
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"analysis: one batch of {ROTATION_PROBES}, card vs CPU with eps injected, max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e_cpu.items()) + " (tol 2e-4)")
+    check(all(v <= 2e-4 for v in e_cpu.values()), "analysis batch disagrees with the CPU")
+
+    steps = {}
+    missing = _missing("sklearn")
+    if missing:
+        print(f"analysis: skipped embed_latents (t-SNE, PCA) and the KMeans clustering: "
+              f"{', '.join(missing)} is not importable here")
+    else:
+        t0 = time.perf_counter()
+        emb = visualizations.embed_latents(mu)
+        steps["embed_latents_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels = visualizations.cluster_labels(mu, 3)
+        steps["kmeans_s"] = time.perf_counter() - t0
+        check(emb.shape == (n, 2) and np.isfinite(emb).all() and labels.shape == (n,),
+              "embedding or cluster labels")
+        print(f"analysis: t-SNE of {n} latents {steps['embed_latents_s']:.2f} s, "
+              f"KMeans {steps['kmeans_s']:.2f} s")
+    missing = _missing("sklearn", "matplotlib")
+    if missing:
+        print(f"analysis: skipped the plots of visualizations and plot_tsne_by_image "
+              f"(embedding, cluster maps, windows, atom clusters): {', '.join(missing)} "
+              f"not importable here")
+    else:
+        tsne_png = tmp / "plots" / "embedding_by_image3.png"
+        t0 = time.perf_counter()
+        _quiet(visualizations.main, argv)
+        _quiet(plot_tsne_by_image.main, [*FRAMES, "--checkpoint", str(final),
+                                         "--out", str(tsne_png)])
+        steps["scripts_s"] = time.perf_counter() - t0
+        plots = tmp / "plots"
+        want_files = [plots / "latent_embeddings.png", tsne_png] + [
+            plots / d / f"image_{i}_{d}.png" for d in ("clusters", "atom_clusters")
+            for i in range(len(ds.sample_coords))] + [plots / "windows" / f"latent_hist_scatter_ws{w}.png"
+                                for w in (10, 20, 30, 60, 90, 120)]
+        check(all(f.exists() and f.stat().st_size > 0 for f in want_files),
+              "the analysis scripts did not write their plots")
+        print(f"analysis: visualizations and plot_tsne_by_image wrote {len(want_files)} plots "
+              f"in {steps['scripts_s']:.2f} s")
+
+    result = {"sites": n, "batches": nb, "load_s": load_s,
+              "encode_s": times, "encode_patches_per_s": [n / t for t in times],
+              "invariance": inv, "mu_vs_fused_encode": e_enc, "card_vs_cpu": e_cpu,
+              "steps": steps, "launches": launches}
+    print(f"analysis: collect_stats of {n} sites {times[1]:.3f} s, "
+          f"{n / times[1]:.1f} patches/s (first call {n / times[0]:.1f}); "
+          f"check_invariance cos {inv['cosine_similarity']:.4f} -> {inv['verdict']}")
+    return result, ds
+
+
+def rotation_invariance_phase(final: Path, ds):
+    """evaluate_rotation_invariance on 64 probes of the analysis's sites, eight
+    angles, with the noise injected; against the same weights on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # full f32 for the comparison with the CPU
+    model = visualizations.load_model_from_checkpoint(str(final), None, "cuda")[0]
+    cpu_model = visualizations.load_model_from_checkpoint(str(final), None, "cpu")[0]
+    probes = ds.batch_at(np.linspace(0, len(ds) - 1, ROTATION_PROBES).astype(int))
+    g = torch.Generator().manual_seed(9)
+    eps = [torch.randn((ROTATION_PROBES, LATENT), generator=g) for _ in range(8)]
+    evaluate_rotation_invariance(model, probes, eps=[e.cuda() for e in eps])  # cuDNN's plans
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    got = evaluate_rotation_invariance(model, probes, eps=[e.cuda() for e in eps])
+    dt = time.perf_counter() - t0  # ends in the host read of the metrics
+    launches = counts()
+    # per angle: the probes' rotation, the STN's and the inverse rotation, the
+    # rotation back
+    want_launches = {**NO_LAUNCH, "rot3_fwd": 4 * 8}
+    check(launches == want_launches, f"rotation invariance launches {launches}")
+    want = evaluate_rotation_invariance(cpu_model, probes.cpu(), eps=eps)
+    # 2e-4 absolute for each metric, as for the model: the angle error wraps
+    # theta's difference through sin and cos, so a theta that lands on the other
+    # side of +-pi on one device moves it by no more than its own rounding
+    err = {k: abs(got[k] - want[k]) for k in want}
+    print(f"rotation_invariance: {ROTATION_PROBES} probes x 8 angles in {dt:.3f} s; "
+          + ", ".join(f"{k} {got[k]:.6f}" for k in got)
+          + "; card vs CPU max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + " (tol 2e-4)")
+    check(set(got) == {"latent_variance", "recon_rmse", "recon_psnr", "recon_ssim", "angle_error"}
+          and all(math.isfinite(v) for v in got.values()), f"rotation invariance {got}")
+    check(all(v <= 2e-4 for v in err.values()), "rotation invariance disagrees with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    return {"probes": ROTATION_PROBES, "angles": 8, "seconds": dt, "metrics": got,
+            "card_vs_cpu": err, "launches": launches}
+
+
+def pretrain_stn_phase(tmp: Path):
+    """pretrain_stn end to end for 2 epochs on the entry points' data, then
+    train_rvae for one epoch from the STN it saved."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    stn_ckpt = tmp / "stn" / "stn_pretrained.pt"
+    args = pretrain_stn.build_argparser().parse_args(
+        [*FRAMES, "--val-split", "0.25", "--epochs", str(PRETRAIN_EPOCHS),
+         "--checkpoint", str(stn_ckpt)])
+    torch.cuda.synchronize()
+    zero_counts()
+    out, _ = _quiet(pretrain_stn.run_pretrain, args)
+    torch.cuda.synchronize()
+    launches = counts()
+    n, n_train, n_val = out["sites"]
+    check(n_val % BATCH and (n_val % BATCH, *SHAPE[1:]) in PATH_SHAPES,
+          f"the kernel phase did not hold rot3 at the pretraining's val tail {n_val % BATCH}")
+    # one rot3 forward per batch (the paired extraction's rotation); the
+    # localisation net neither rotates nor differentiates a rotation
+    for e in out["epochs"]:
+        check(e["steps"] == n_train // BATCH and e["val_batches"] == -(-n_val // BATCH),
+              f"pretrain_stn epoch {e['epoch']} batches {e['steps']} / {e['val_batches']}")
+        check(e["launches"] == {**NO_LAUNCH, "rot3_fwd": e["steps"] + e["val_batches"]},
+              f"pretrain_stn epoch {e['epoch']} launches {e['launches']}")
+        check(math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"]),
+              f"pretrain_stn epoch {e['epoch']} losses {e['train_loss']}, {e['val_loss']}")
+    check(launches == {k: sum(e["launches"][k] for e in out["epochs"]) for k in launches},
+          f"pretrain_stn launched {launches} outside its epochs' counts")
+    payload = load_checkpoint(stn_ckpt)
+    want_keys = {f"{key}.{w}" for _, key, _, _ in stn_spec(PATCH) for w in ("weight", "bias")}
+    check(set(payload) == {"rotation_stn", "epoch", "best_val", "args"}
+          and set(payload["rotation_stn"]) == want_keys
+          and payload["best_val"] == out["best_val"], f"STN checkpoint holds {sorted(payload)}")
+
+    ckpt = tmp / "rvae_stn" / "rvae_best.pt"
+    rvae, r_launches, printed, _ = run_cli(train_rvae, [*CLI_DATA, "--epochs", "1",
+                                                        "--stn-checkpoint", str(stn_ckpt),
+                                                        "--checkpoint", str(ckpt)])
+    check(f"Loaded pretrained STN from {stn_ckpt}" in printed, "train_rvae did not load the STN")
+    _check_epochs(rvae, "train_rvae --stn-checkpoint", per_step={"rot3_fwd": 3, "rot3_bwd": 2},
+                  per_val_batch={"rot3_fwd": 3})
+    rates = [{"epoch": e["epoch"], "train_patches_per_s": e["steps"] * BATCH / e["train_s"],
+              "eval_s": e["eval_s"]} for e in out["epochs"]]
+    print("pretrain_stn: " + ", ".join(
+        f"epoch {e['epoch']} train {e['train_loss']:.4f} val {e['val_loss']:.4f}"
+        for e in out["epochs"]) + f"; then train_rvae from it: loss "
+        f"{rvae['epochs'][0]['metrics']['train_loss']:.4f}")
+    return {"sites": list(out["sites"]), "epochs": rates,
+            "train_loss": [e["train_loss"] for e in out["epochs"]],
+            "val_loss": [e["val_loss"] for e in out["epochs"]], "launches": launches,
+            "train_rvae_from_stn": {"train_loss": rvae["epochs"][0]["metrics"]["train_loss"],
+                                    "launches": r_launches}}
+
+
 def port_bench_phase():
     """python -m livae_tpu_torch.bench in a process of its own: exit code 0 and
     one JSON line on stdout."""
@@ -889,6 +1161,13 @@ def main() -> int:
         print("train_rvae " + json.dumps({"card": smi, **rvae_cli}))
         vae_cli = train_vae_phase(Path(tmp))
         print("train_vae " + json.dumps({"card": smi, **vae_cli}))
+        final = Path(tmp) / "rvae" / "rvae_best_final.pt"
+        analysis, analysis_ds = analysis_phase(Path(tmp), final)
+        print("analysis " + json.dumps({"card": smi, **analysis}))
+        rot_inv = rotation_invariance_phase(final, analysis_ds)
+        print("rotation_invariance " + json.dumps({"card": smi, **rot_inv}))
+        pretrain = pretrain_stn_phase(Path(tmp))
+        print("pretrain_stn " + json.dumps({"card": smi, **pretrain}))
     patches = patch_dataset_phase()
     print("patch_dataset " + json.dumps({"card": smi, **patches}))
     vae_agreement_phase()
@@ -919,7 +1198,9 @@ def main() -> int:
     ]
     by_path = {"main": main["launches"], "rotation": shear_launches,
                "exact_resample": exact["launches"], "train_rvae": rvae_cli["launches"],
-               "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"]}
+               "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"],
+               "analysis": analysis["launches"], "rotation_invariance": rot_inv["launches"],
+               "pretrain_stn": pretrain["launches"]}
     for k in kernels:  # each driven path's own count, read just after it ran
         k["launches_by_path"] = {path: got[k["name"]] for path, got in by_path.items()}
     for k in kernels[:2]:  # the rot3 launch plan at the main path's canvas

@@ -18,7 +18,8 @@ Prints ONE JSON line on stdout:
 `vs_baseline` is against 6.8 patches/s, the PyTorch reference's combined train
 and encode rate measured on one CPU core (BASELINE.md); it compares a GPU
 with a CPU core and is no speed-up of like for like. The dataset build prints
-to stderr. A failure prints the error line and exits with code 2.
+to stderr, as does the kernel build (before anything is timed). A failure
+prints the error line and exits with code 2.
 
 The size flags exist for a quick run on the CPU (`--cpu`, plain PyTorch).
 """
@@ -39,7 +40,7 @@ from .data.datasets import PairedAdaptiveLatticeDataset
 from .data.synthetic import synthetic_mos2_frame
 from .device import resolve_device
 from .models.rvae import RVAE
-from .scripts._common import card_description
+from .scripts._common import card_description, prebuild_kernels
 from .train.engine import (
     make_fused_encode,
     make_fused_rvae_eval,
@@ -70,6 +71,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def run(args) -> dict:
     device = resolve_device("cpu" if args.cpu else None)
+    prebuild_kernels(device, file=sys.stderr)  # stdout stays one JSON line
     frame, _ = synthetic_mos2_frame(size=args.frame_size, spacing=40.0, seed=0)
     with contextlib.redirect_stdout(sys.stderr):  # keep stdout = one JSON line
         dataset = PairedAdaptiveLatticeDataset([frame], patch_size=args.patch,

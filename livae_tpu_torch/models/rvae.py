@@ -128,6 +128,12 @@ class RotationSTN(nn.Module):
         cos_theta, sin_theta, theta = self.localize(x)
         return self.apply_rotation(x, cos_theta, sin_theta, theta), theta
 
+    @staticmethod
+    def get_rotation_matrix(theta: torch.Tensor) -> torch.Tensor:
+        """[B, 2, 3] rotation matrices from an angle tensor of any shape [B, ...]."""
+        theta = theta.reshape(-1)
+        return rotation_matrix(torch.cos(theta), torch.sin(theta))
+
 
 class Encoder(nn.Module):
     """STN canonicalisation + conv trunk -> (mu, logvar, theta)."""
@@ -272,3 +278,10 @@ class RVAE(nn.Module):
 
     def encode(self, x: torch.Tensor):
         return self.encoder(x)
+
+    def predict_theta(self, x: torch.Tensor) -> torch.Tensor:
+        """Localisation-net-only rotation angle (see Encoder.predict_theta)."""
+        return self.encoder.predict_theta(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host library (native/lattice_native.cpp).
 
-A copy of livae_tpu/ops/native.py: `cluster_points` (grid-hash + union-find
+A copy of livae_tpu/ops/native.py: `native_available`, `cluster_points` (grid-hash + union-find
 site dedup with centroids) and `label_sites` (atom/vacancy labels), built on
 first use with `make -C native`, with a scipy fallback that gives the same
 results when no C++ toolchain is available.
@@ -14,7 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["cluster_points", "label_sites"]
+__all__ = ["native_available", "cluster_points", "label_sites"]
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
 _LIB_PATH = _NATIVE_DIR / "liblattice_native.so"
@@ -58,6 +58,11 @@ def _load():
     ]
     _lib = lib
     return _lib
+
+
+def native_available() -> bool:
+    """True when the native library is built (or builds now) and loads."""
+    return _load() is not None
 
 
 def cluster_points(points: np.ndarray, radius: float) -> tuple[np.ndarray, np.ndarray]:

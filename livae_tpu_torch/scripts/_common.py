@@ -4,7 +4,8 @@ Data resolution: `--data` .h5 paths, else data/*.h5, else `--synthetic N`
 ground-truthed synthetic MoS2 frames. Device flags: the entry points run on
 the CUDA device unless `--cpu` is passed. Randomness: every epoch's generator
 is seeded from (seed, stream, epoch), so a resumed run draws what an
-uninterrupted one draws.
+uninterrupted one draws. Kernels: every entry point builds them with
+`prebuild_kernels` before its first timed step.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import contextlib
 import glob
 import hashlib
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -102,6 +104,29 @@ def note_ignored_flags(args) -> None:
         if getattr(args, flag, default) != default:
             print(f"note: --{flag.replace('_', '-')} is accepted and ignored: batches are "
                   "extracted on the device")
+
+
+def prebuild_kernels(device: torch.device, file=None) -> float:
+    """Build every CUDA kernel now, before the first timed step, and print
+    `kernel build: <s> s` (to `file`, default stdout). On the CPU nothing is
+    built and nvcc is not looked for. Returns the seconds spent."""
+    if device.type != "cuda":
+        return 0.0
+    from ..ops import _build
+
+    seconds = _build.build_all()
+    print(f"kernel build: {seconds:.2f} s", file=file or sys.stdout, flush=True)
+    return seconds
+
+
+def batched(indices: np.ndarray, batch_size: int, drop_last: bool = True):
+    """Consecutive chunks of `indices`; the ragged tail too unless drop_last."""
+    n = len(indices)
+    stop = n - (n % batch_size) if drop_last else n
+    for i in range(0, max(stop, 0), batch_size):
+        yield indices[i : i + batch_size]
+    if not drop_last and stop < n:
+        yield indices[stop:]
 
 
 def split_indices(n: int, val_split: float, seed: int = 0):

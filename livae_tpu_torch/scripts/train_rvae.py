@@ -44,6 +44,7 @@ from ._common import (
     epoch_index_batches,
     kernel_launches,
     note_ignored_flags,
+    prebuild_kernels,
     profile_epoch,
     resolve_images,
     resolve_run_device,
@@ -57,6 +58,7 @@ from ._common import (
 def run_training(args) -> dict:
     device = resolve_run_device(args)
     note_ignored_flags(args)
+    kernel_build_s = prebuild_kernels(device)
     images = resolve_images(args)
 
     normalize = not getattr(args, "no_per_patch_norm", False)
@@ -280,7 +282,8 @@ def run_training(args) -> dict:
         "best_val": best_val, "history": history.get_averages(), "model": model,
         "optimizer": optimizer, "scheduler": scheduler, "epochs": epochs,
         "start_epoch": start_epoch, "resumed_digest": resumed_digest,
-        "dataset_build_s": dataset_build_s, "final_checkpoint": final_path,
+        "dataset_build_s": dataset_build_s, "kernel_build_s": kernel_build_s,
+        "final_checkpoint": final_path,
         "sites": (n, len(train_idx), len(val_idx)),
     }
 

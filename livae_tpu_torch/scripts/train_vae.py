@@ -38,6 +38,7 @@ from ._common import (
     epoch_index_batches,
     kernel_launches,
     note_ignored_flags,
+    prebuild_kernels,
     resolve_images,
     resolve_run_device,
     split_indices,
@@ -49,6 +50,7 @@ from ._common import (
 def run_training(args) -> dict:
     device = resolve_run_device(args)
     note_ignored_flags(args)
+    kernel_build_s = prebuild_kernels(device)
     images = resolve_images(args)
 
     normalize = not getattr(args, "no_per_patch_norm", False)
@@ -187,7 +189,8 @@ def run_training(args) -> dict:
         writer.close()
     return {
         "best_val": best_val, "model": model, "optimizer": optimizer, "scheduler": scheduler,
-        "epochs": epochs, "dataset_build_s": dataset_build_s, "final_checkpoint": final_path,
+        "epochs": epochs, "dataset_build_s": dataset_build_s, "kernel_build_s": kernel_build_s,
+        "final_checkpoint": final_path,
         "sites": (n, len(train_idx), len(val_idx)),
     }
 

@@ -17,8 +17,9 @@ advance `scheduler` (from `make_schedule`) once per optimizer step.
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
-from typing import Any
+from typing import Any, Iterable, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +52,7 @@ __all__ = [
     "make_eval_step",
     "make_rvae_eval_step",
     "evaluate_fused",
+    "evaluate_rotation_invariance",
     "log_scalar_metrics_tensorboard",
     "log_reconstructions_tensorboard",
 ]
@@ -493,6 +495,63 @@ def make_fused_encode(model, *, patch_size: int, padding: int, margin: int,
         return torch.cat(mus), torch.cat(logvars), torch.cat(thetas)
 
     return encode
+
+
+@torch.no_grad()
+def evaluate_rotation_invariance(
+    model,
+    images: torch.Tensor,
+    angles: Iterable[float] = (0, 45, 90, 135, 180, 225, 270, 315),
+    eps: Sequence[torch.Tensor] | None = None,
+) -> dict[str, float]:
+    """Rotate the probes `images` [B, 1, S, S] through fixed angles (degrees)
+    and measure how invariant the latents and reconstructions are.
+
+    Per angle: rotate the probes (reflection padding), run the rVAE, rotate its
+    rotated reconstruction back, and score it against the probes. Returns
+    latent_variance (the mean over latents and probes of mu's variance across
+    angles), recon_rmse / recon_psnr / recon_ssim (means over angles), and
+    angle_error: the mean absolute circular error of theta_a against
+    theta_0 - a (radians). The noise of angle i is `eps[i]` where given, else
+    drawn from one generator seeded 0 (the JAX package takes fold_in(key, i)).
+    """
+    device = next(model.parameters()).device
+    images = images.to(device)
+    generator = torch.Generator(device=device).manual_seed(0) if eps is None else None
+    # the angles as float32, as the JAX package computes them
+    angles_rad = torch.tensor([a * math.pi / 180.0 for a in angles], dtype=torch.float32,
+                              device=device)
+    B = images.shape[0]
+    mus, rmses, psnrs, ssims, angle_errs = [], [], [], [], []
+    base_theta = None
+    for i, a in enumerate(angles_rad):
+        angle_vec = a.expand(B)
+        rotated = rotate_image_fast(images, angle_vec, "reflection")
+        rotated_recon, _recon, theta, mu, _logvar = model(
+            rotated, None if eps is None else eps[i], generator)
+        unrotated = rotate_image_fast(rotated_recon, -angle_vec, "reflection")
+        mus.append(mu)
+        rmses.append(torch.sqrt(torch.mean((unrotated - images) ** 2)))
+        psnrs.append(psnr(unrotated, images))
+        ssims.append(ssim(unrotated, images))
+        if base_theta is None:
+            base_theta = theta
+        else:
+            # theta should decrease by the applied angle: theta_a ~ theta_0 - a
+            diff = (theta - base_theta)[:, 0] + a
+            angle_errs.append(torch.mean(torch.abs(torch.atan2(torch.sin(diff), torch.cos(diff)))))
+
+    stats = {
+        "latent_variance": torch.mean(torch.var(torch.stack(mus), dim=0, unbiased=False)),
+        "recon_rmse": torch.stack(rmses).mean(),
+        "recon_psnr": torch.stack(psnrs).mean(),
+        "recon_ssim": torch.stack(ssims).mean(),
+    }
+    if angle_errs:
+        stats["angle_error"] = torch.stack(angle_errs).mean()
+    host = {k: float(v) for k, v in metrics_to_host(stats).items()}  # one transfer
+    host.setdefault("angle_error", 0.0)
+    return host
 
 
 def metrics_to_host(metrics: dict) -> dict[str, np.ndarray]:

@@ -2,11 +2,13 @@
 
 * Importing livae_tpu_torch, every submodule and chip_smoke.py loads no JAX
   and nothing of livae_tpu, and builds no kernel; it also needs none of the
-  optional packages (h5py, tensorboardX, matplotlib), which are imported
-  where they are used.
+  optional packages (h5py, tensorboardX, matplotlib, sklearn), which are
+  imported where they are used.
 * Every entry point raises when CUDA is wanted by default and absent.
 * rot3 and the fractional shift on a CPU tensor take the plain version and
   launch nothing; the kernel paths refuse CPU tensors; a failed build raises.
+* The entry points build the kernels before their first step on the card and
+  print the seconds; on the CPU they never look for nvcc.
 """
 
 import subprocess
@@ -29,7 +31,7 @@ import importlib, pkgutil, sys
 
 class _Blocked:
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "livae_tpu", "h5py", "tensorboardX",
-               "matplotlib")
+               "matplotlib", "sklearn")
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.BLOCKED:
@@ -50,7 +52,9 @@ print("MODULES", " ".join(names))
 """
 
 NEW_MODULES = ["bench", "data.h5", "scripts._common", "scripts.train_rvae", "scripts.train_vae",
-               "utils.resume", "models.vae", "train.state", "utils.checkpoint"]
+               "utils.resume", "models.vae", "train.state", "utils.checkpoint",
+               "scripts.visualizations", "scripts.plot_tsne_by_image",
+               "scripts.verify_rotational_invariance", "scripts.pretrain_stn"]
 
 
 def test_port_imports_no_jax_and_builds_nothing():
@@ -64,14 +68,15 @@ def test_port_imports_no_jax_and_builds_nothing():
 
 
 def test_optional_packages_are_imported_where_they_are_used():
-    """h5py, tensorboardX and matplotlib appear only inside functions."""
+    """h5py, tensorboardX, matplotlib and sklearn appear only inside functions."""
     import ast
 
     for path in sorted((REPO / "livae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for node in ast.parse(path.read_text()).body:  # module-level statements only
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
-                assert not any(n.split(".")[0] in ("h5py", "tensorboardX", "matplotlib")
+                assert not any(n.split(".")[0] in ("h5py", "tensorboardX", "matplotlib",
+                                                   "sklearn")
                                for n in names), f"{path.name} imports {names} at module level"
 
 
@@ -146,3 +151,85 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel build failed"):
         _build.build_all()
     assert not list(tmp_path.iterdir())
+
+
+def test_prebuild_kernels_builds_on_the_card_only(monkeypatch, capsys):
+    """On the CPU: nothing built, nvcc not looked for, nothing printed. On a CUDA
+    device: build_all once per call, and its seconds printed (to the file asked
+    for)."""
+    import io
+
+    from livae_tpu_torch.scripts._common import prebuild_kernels
+
+    def no_nvcc():
+        raise AssertionError("looked for nvcc")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    assert prebuild_kernels(torch.device("cpu")) == 0.0
+    assert capsys.readouterr().out == ""
+    calls = []
+    monkeypatch.setattr(_build, "build_all", lambda: calls.append(1) or 1.25)
+    assert prebuild_kernels(torch.device("cuda")) == 1.25
+    assert capsys.readouterr().out == "kernel build: 1.25 s\n"
+    err = io.StringIO()
+    prebuild_kernels(torch.device("cuda", 0), file=err)
+    assert err.getvalue() == "kernel build: 1.25 s\n" and calls == [1, 1]
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("entry", ["scripts.train_rvae", "scripts.train_vae",
+                                   "scripts.pretrain_stn", "bench"])
+def test_entry_points_build_before_their_dataset(monkeypatch, entry):
+    """Each training entry point calls prebuild_kernels on its device before
+    it builds its dataset (where the test stops it)."""
+    import importlib
+
+    module = importlib.import_module(f"livae_tpu_torch.{entry}")
+    order = []
+
+    def dataset(*a, **k):
+        order.append("dataset")
+        raise _Stop
+
+    monkeypatch.setattr(module, "prebuild_kernels",
+                        lambda device, file=None: order.append(("build", device.type)) or 0.0)
+    monkeypatch.setattr(module, "PairedAdaptiveLatticeDataset" if hasattr(
+        module, "PairedAdaptiveLatticeDataset") else "AdaptiveLatticeDataset", dataset)
+    if entry == "bench":
+        run = lambda: module.run(module.build_argparser().parse_args(  # noqa: E731
+            ["--cpu", "--frame-size", "64"]))
+    else:
+        monkeypatch.setattr(module, "resolve_images", lambda args: [np.zeros((8, 8))])
+        runner = getattr(module, "run_training", None) or module.run_pretrain
+        run = lambda: runner(module.build_argparser().parse_args(["--cpu"]))  # noqa: E731
+    with pytest.raises(_Stop):
+        run()
+    assert order == [("build", "cpu"), "dataset"]
+
+
+def test_analysis_scripts_build_before_their_dataset(monkeypatch, tmp_path):
+    """The analysis scripts share load_for_analysis: the kernels, then the
+    checkpoint's model, then the dataset."""
+    from livae_tpu_torch.models.rvae import RVAE
+    from livae_tpu_torch.scripts import visualizations
+    from livae_tpu_torch.utils.checkpoint import save_reference_checkpoint
+
+    path = tmp_path / "rvae.pt"
+    save_reference_checkpoint(path, RVAE(8, 1, 32, device="cpu").state_dict(),
+                              args={"latent_dim": 8, "patch_size": 32})
+    order = []
+
+    def dataset(*a, **k):
+        order.append("dataset")
+        raise _Stop
+
+    monkeypatch.setattr(visualizations, "prebuild_kernels",
+                        lambda device: order.append(("build", device.type)))
+    monkeypatch.setattr(visualizations, "AdaptiveLatticeDataset", dataset)
+    args = visualizations.build_argparser().parse_args(["--cpu", "--checkpoint", str(path)])
+    with pytest.raises(_Stop):
+        visualizations.load_for_analysis(args, None, images=[np.zeros((8, 8))])
+    assert order == [("build", "cpu"), "dataset"]
