@@ -73,8 +73,29 @@ Run from the repository root:  python3 chip_smoke.py
    augmentation: 1 rot3 forward per step, no backward); the f32 VAE on the
    card against the CPU port at 2e-4; `python -m livae_tpu_torch.bench` as a
    subprocess, whose stdout must be one JSON line.
+10. device_peaks: `build_adaptive_lattice(device_peaks=True)` against the
+   host build on the bench frame (1409 sites) and on a 2048-pixel frame:
+   the atoms equal the host's in its order, the tables equal row for row and
+   as lexsorted sets, the card's table equals the CPU port's; build seconds
+   and the final max_peaks; `bandpass_filter`,
+   `fft_spectra` and `normalize_image` on the 2048 frame, card against CPU.
+11. host_loop: `train_rvae_one_epoch` (4 batches) and `evaluate_rvae` (2) over
+   the bench dataset's `iter_epoch`, `train_one_epoch` (4) and `evaluate` (2)
+   with the plain VAE on `PatchDataset`, at batch 512 in bf16; finite epoch
+   means and their launches.
+12. sweep: `python -m livae_tpu_torch.scripts.train_rvae_raytune` as a process
+   on the entry points' data at the CLI's widths: ASHA with the native TPE (4
+   trials, 2 at a time, 3 epochs, grace 1), PBT (4 trials, 2 at a time,
+   interval 1; a donor checkpoint must be loaded), and the process executor
+   (1 trial, 1 epoch); every trial done or stopped with finite losses, the
+   JAX script's best_config.json keys, each run's rot3 launches (2 forward and
+   2 backward per train step, 2 forward per val batch); then
+   `train_rvae_with_best --override-epochs 1` in-process on the ASHA run's
+   best config (its checkpoint loads), `compare_training_methods`, and
+   `analyze_raytune_results` where pandas is importable.
 Around each driven path the launch counters are zeroed just before and read
-just after. The build step prints each kernel's registers and spills (ptxas);
+just after (a sweep's processes report their own). A `phase_seconds` line
+gives each phase's wall-clock seconds. The build step prints each kernel's registers and spills (ptxas);
 the rot3 phase prints each cluster size's time, shared memory per block,
 resident clusters and share of the bound. Then it prints one
 {"kernels": [...]} line (kernel C's figures are f32 along axis 2 with the
@@ -90,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -111,22 +133,46 @@ from livae_tpu_torch.models.vae import VAE
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
 from livae_tpu_torch.ops import shear as SH
+from livae_tpu_torch.ops.fft import (
+    bandpass_filter,
+    fft_spectra,
+    host_bandpass_normalize,
+    normalize_image,
+)
+from livae_tpu_torch.ops.lattice import (
+    build_adaptive_lattice,
+    detect_atoms_device,
+    estimate_lattice_constant,
+)
+from livae_tpu_torch.ops.peaks import get_clean_peaks
 from livae_tpu_torch.ops.resample import aligned_margin, rotate_image_fast
 from livae_tpu_torch.scripts import (
+    analyze_raytune_results,
+    compare_training_methods,
     plot_tsne_by_image,
     pretrain_stn,
     train_rvae,
+    train_rvae_with_best,
     train_vae,
     verify_rotational_invariance,
     visualizations,
 )
 from livae_tpu_torch.train.engine import (
+    MetricLogger,
+    evaluate,
     evaluate_rotation_invariance,
+    evaluate_rvae,
+    make_eval_step,
     make_fused_encode,
     make_fused_rvae_eval,
     make_fused_rvae_train_step,
     make_fused_vae_train_step,
+    make_rvae_eval_step,
+    make_rvae_train_step,
+    make_train_step,
     metrics_to_host,
+    train_one_epoch,
+    train_rvae_one_epoch,
 )
 from livae_tpu_torch.train.state import make_optimizer
 from livae_tpu_torch.utils.checkpoint import (
@@ -1104,6 +1150,310 @@ def pretrain_stn_phase(tmp: Path):
                                     "launches": r_launches}}
 
 
+def _lexsorted(sites, labels):
+    order = np.lexsort((sites[:, 1], sites[:, 0]))
+    return sites[order], labels[order]
+
+
+def _final_max_peaks(shape, min_distance: int, n_valid: int) -> int:
+    """The table size detect_atoms_device ends with for n_valid peaks: its
+    first size, grown fourfold while every row is valid."""
+    hard_cap = (shape[0] // max(min_distance, 1) + 1) * (shape[1] // max(min_distance, 1) + 1)
+    size = min(16384, hard_cap)
+    while n_valid >= size and size < hard_cap:
+        size = min(hard_cap, size * 4)
+    return size
+
+
+def device_peaks_phase():
+    """The site table with device_peaks=True against the host build, on the
+    bench frame and on a 2048-pixel frame (the reference's frame size), at
+    patch 128 and padding 32; then the device filters on the 2048 frame, card
+    against the same port on the CPU. No kernel of the port runs here."""
+    torch.cuda.synchronize()
+    zero_counts()
+    frames = []
+    for size in (1024, 2048):
+        raw, _ = synthetic_mos2_frame(size=size, spacing=40.0, seed=0)
+        img = host_bandpass_normalize(raw, 20, 100)
+        spacing = estimate_lattice_constant(img, device="cuda")
+        min_distance = int(spacing * 0.15)
+        t0 = time.perf_counter()
+        host = build_adaptive_lattice(img, PATCH, PADDING, lattice_spacing=spacing, device="cuda")
+        host_s = time.perf_counter() - t0
+        dev_s = []
+        for _ in range(2):  # the first call meets cuFFT's and the sort's first launches
+            t0 = time.perf_counter()
+            dev = build_adaptive_lattice(img, PATCH, PADDING, lattice_spacing=spacing,
+                                         device_peaks=True, device="cuda")
+            dev_s.append(time.perf_counter() - t0)
+        cpu = build_adaptive_lattice(img, PATCH, PADDING, lattice_spacing=spacing,
+                                     device_peaks=True, device="cpu")
+        atoms_dev = detect_atoms_device(img, min_distance, device="cuda")
+        atoms_host = get_clean_peaks(img, min_distance=min_distance)
+        check(np.array_equal(atoms_dev, atoms_host),
+              f"{size} frame: the device atoms are not the host's, in its order")
+        check(np.array_equal(dev[0], cpu[0]) and np.array_equal(dev[1], cpu[1]),
+              f"{size} frame: the device site table on the card differs from the CPU's")
+        equal = (len(dev[0]) == len(host[0])
+                 and all(np.array_equal(a, b) for a, b in zip(_lexsorted(*dev[:2]),
+                                                              _lexsorted(*host[:2]))))
+        # a float64 frame is ranked in float64 on the card, so the atoms come in
+        # the host's order and the tables are equal row for row, not only as sets
+        same_rows = np.array_equal(dev[0], host[0]) and np.array_equal(dev[1], host[1])
+        entry = {
+            "size": size, "spacing": spacing, "min_distance": min_distance,
+            "atoms": len(atoms_dev), "sites_host": len(host[0]), "sites_device": len(dev[0]),
+            "equal_as_sets": bool(equal), "equal_rows": bool(same_rows),
+            "host_build_s": host_s, "device_build_s": dev_s,
+            "max_peaks": _final_max_peaks(img.shape, min_distance, len(atoms_dev)),
+        }
+        frames.append(entry)
+        print(f"device_peaks {size}: {len(dev[0])} sites on the device, {len(host[0])} on the "
+              f"host, equal as sets: {equal}, row for row: {same_rows}; atoms "
+              f"{len(atoms_dev)} equal; host build {host_s:.3f} s, device build "
+              f"{dev_s[1]:.3f} s (first {dev_s[0]:.3f} s), max_peaks {entry['max_peaks']}")
+        check(equal and same_rows, f"{size} frame: the device site table is not the host's")
+        if size == 1024:
+            check(len(dev[0]) == 1409, "bench frame: the site table has not 1409 sites")
+        last = (raw, img)
+
+    raw, img = last
+    dev_raw = torch.as_tensor(raw, dtype=torch.float32, device="cuda")
+    filters = {
+        "bandpass_filter": lambda t: bandpass_filter(t, 20, 100),
+        "fft_spectra_magnitude": lambda t: fft_spectra(t)[0],
+        "normalize_image": lambda t: normalize_image(bandpass_filter(t, 20, 100)),
+    }
+    tol = {"bandpass_filter": 1e-4, "fft_spectra_magnitude": 1e-5, "normalize_image": 1e-4}
+    errs, ms = {}, {}
+    for name, fn in filters.items():
+        got = fn(dev_raw).cpu()
+        want = fn(dev_raw.cpu())
+        scale = float(want.abs().max())
+        errs[name] = float((got - want).abs().max()) / scale
+        ms[name] = median_ms(lambda: fn(dev_raw), reps=5, warmup=2, inner=5)
+        # float32 FFTs of two libraries: the error is relative to the largest term
+        print(f"filters 2048: {name} card vs CPU max_abs_err / max {errs[name]:.3e} "
+              f"(tol {tol[name]:.0e}), {ms[name]:.4f} ms on the card")
+        check(errs[name] <= tol[name], f"{name} on the card disagrees with the CPU")
+    launches = counts()
+    check(launches == NO_LAUNCH, f"device_peaks launched {launches}")
+    return {"frames": frames, "filters_rel_err": errs, "filters_ms": ms, "launches": launches}
+
+
+def _batches(dataset, gen, n: int):
+    """n batches of `dataset.iter_epoch(gen, BATCH)`, epoch after epoch."""
+    def forever():
+        while True:
+            yield from dataset.iter_epoch(gen, BATCH)
+    return itertools.islice(forever(), n)
+
+
+HOST_LOOP_STEPS, HOST_LOOP_VAL = 4, 2
+
+
+def host_loop_phase(ds):
+    """The host-loop trainers at batch 512, bf16, over the datasets' own
+    iter_epoch batches: train_rvae_one_epoch (4 batches) and evaluate_rvae
+    (2) on the bench frame's paired dataset, then train_one_epoch (4) and
+    evaluate (2) with the plain VAE on PatchDataset. A paired batch's
+    extraction rotates once; the rVAE step rotates twice forward, twice
+    backward; PatchDataset's extraction rotates once, the VAE not at all."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    model = RVAE(LATENT, 1, PATCH, "bfloat16", device="cuda",
+                 generator=torch.Generator().manual_seed(12))
+    opt = make_optimizer(model.parameters(), 1e-3, optimizer="adamw", weight_decay=1e-5)
+    patches = PatchDataset([synthetic_mos2_frame(size=1024, spacing=40.0, seed=0)[0]],
+                           patch_size=PATCH, device="cuda")
+    vae = VAE(LATENT, 1, PATCH, "bfloat16", device="cuda",
+              generator=torch.Generator().manual_seed(13))
+    vopt = make_optimizer(vae, 1e-3, optimizer="adam")
+    runs = [
+        ("train_rvae_one_epoch", lambda log: train_rvae_one_epoch(
+            make_rvae_train_step(model, opt, device="cuda"), _batches(ds, gen, HOST_LOOP_STEPS), 0, log,
+            10.0, 10.0), HOST_LOOP_STEPS, {"rot3_fwd": 3, "rot3_bwd": 2}),
+        ("evaluate_rvae", lambda log: evaluate_rvae(
+            make_rvae_eval_step(model, device="cuda"), _batches(ds, gen, HOST_LOOP_VAL), 1, log, 10.0, 10.0),
+         HOST_LOOP_VAL, {"rot3_fwd": 3}),
+        ("train_one_epoch", lambda log: train_one_epoch(
+            make_train_step(vae, vopt, device="cuda"), _batches(patches, gen, HOST_LOOP_STEPS), 2, log),
+         HOST_LOOP_STEPS, {"rot3_fwd": 1}),
+        ("evaluate", lambda log: evaluate(
+            make_eval_step(vae, device="cuda"), _batches(patches, gen, HOST_LOOP_VAL), 3, log),
+         HOST_LOOP_VAL, {"rot3_fwd": 1}),
+    ]
+    result, total = {}, dict(NO_LAUNCH)
+    for name, run, n, per_batch in runs:
+        log = MetricLogger()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        means = run(log)  # ends in the epoch's one host read
+        dt = time.perf_counter() - t0
+        got = counts()
+        want = {**NO_LAUNCH, **{k: v * n for k, v in per_batch.items()}}
+        check(got == want, f"{name} launches {got}, expected {want}")
+        check(bool(means) and all(math.isfinite(v) for v in means.values()),
+              f"{name} epoch means {means}")
+        for k in total:
+            total[k] += got[k]
+        result[name] = {"batches": n, "seconds": dt, "patches_per_s": n * BATCH / dt,
+                        "loss": means[("train_" if name.startswith("train") else "val_") + "loss"],
+                        "launches": got}
+        print(f"host_loop: {name} {n} batches in {dt:.3f} s ({n * BATCH / dt:.1f} patches/s), "
+              f"loss {result[name]['loss']:.4f}, launches {got}")
+    result["launches"] = total
+    return result
+
+
+SWEEP_DATA = [*FRAMES, "--val-split", "0.25"]
+# per train step of a trial (the fused VAE step on the rVAE: the STN's rotation
+# and the inverse rotation, each backward) and per val batch of its fused eval
+SWEEP_PER_STEP, SWEEP_PER_VAL = {"rot3_fwd": 2, "rot3_bwd": 2}, {"rot3_fwd": 2}
+SWEEP_RUNS = {
+    "asha": ["--num-samples", "4", "--max-concurrent", "2", "--epochs", "3",
+             "--grace-period", "1"],
+    # PBT exploits only with two peers that have reported: 2 trials never do.
+    # 4 trials, 2 at a time, with one latent width (a donor's weights fit) and
+    # lr and beta fixed at first (the losses compare): a trial of the second
+    # pair, one epoch in, is then the worst beside the first pair's three
+    "pbt": ["--scheduler", "pbt", "--perturbation-interval", "1", "--num-samples", "4",
+            "--max-concurrent", "2", "--epochs", "3", "--latent-dims", "16",
+            "--lr-min", "1e-3", "--lr-max", "1e-3", "--beta-min", "1", "--beta-max", "1"],
+    "process": ["--executor", "process", "--max-concurrent", "1", "--num-samples", "1",
+                "--epochs", "1"],
+}
+BEST_CONFIG_KEYS = ["lr", "latent_dim", "beta", "weight_decay", "batch_size", "normalize",
+                    "gamma", "patch_size", "padding", "val_split", "epochs", "beta_annealing",
+                    "beta_annealing_epochs", "grad_max_norm"]  # the JAX script's
+
+
+def _sweep_expected(history) -> dict:
+    want = dict(NO_LAUNCH)
+    for m in history:
+        for k, v in SWEEP_PER_STEP.items():
+            want[k] += v * m["steps"]
+        for k, v in SWEEP_PER_VAL.items():
+            want[k] += v * m["val_batches"]
+    return want
+
+
+def sweep_phase(tmp: Path, sites):
+    """python -m livae_tpu_torch.scripts.train_rvae_raytune as a process, three
+    runs (ASHA with TPE, PBT, the process executor) on the entry points' data
+    at the CLI's widths; then train_rvae_with_best in-process on the ASHA run's
+    best_config.json, compare_training_methods, and analyze_raytune_results
+    where pandas is importable. `sites` is train_rvae's (all, train, val) on
+    the same data and split."""
+    root = Path(__file__).resolve().parent
+    n_val = sites[2]
+    check((n_val % BATCH, *SHAPE[1:]) in PATH_SHAPES,
+          f"the kernel phase did not hold rot3 at the sweep's val tail {n_val % BATCH}")
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, flags in SWEEP_RUNS.items():
+        best_path = tmp / "sweep" / name / "best_config.json"
+        cmd = [sys.executable, "-m", "livae_tpu_torch.scripts.train_rvae_raytune", *SWEEP_DATA,
+               *flags, "--ray-results-dir", str(tmp / "ray_results"), "--experiment-name", name,
+               "--save-best-config", str(best_path)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+        seconds = time.perf_counter() - t0
+        sys.stderr.write(proc.stderr[-3000:])
+        check(proc.returncode == 0, f"sweep {name} exited {proc.returncode}: "
+              f"{proc.stdout[-1500:]}")
+        summary = json.loads(next(line for line in proc.stdout.splitlines()
+                                  if line.startswith("sweep_summary "))[len("sweep_summary "):])
+        trials = json.loads((tmp / "ray_results" / name / "results.json").read_text())
+        check(len(trials) == summary["trials"] and all(t["status"] in ("done", "stopped")
+                                                        for t in trials),
+              f"sweep {name} trials {[t['status'] for t in trials]}")
+        want = dict(NO_LAUNCH)
+        for t in trials:
+            check(len(t["history"]) == t["epochs"] >= 1, f"sweep {name} trial {t['trial_id']}")
+            for m in t["history"]:
+                check(all(math.isfinite(m[k]) for k in ("loss", "train_loss", "val_psnr")),
+                      f"sweep {name} trial {t['trial_id']} epoch {m['epoch']} metrics {m}")
+                check(m["val_batches"] == -(-n_val // BATCH) and m["steps"] == sites[1] // BATCH,
+                      f"sweep {name} batches {m}")
+            for k, v in _sweep_expected(t["history"]).items():
+                want[k] += v
+        if name == "process":  # the launches are the child's, in its reports
+            (t,) = trials
+            got = {k: t["history"][-1][k] for k in NO_LAUNCH}
+            check(t["history"][-1]["pid"] != summary["pid"] and t["history"][-1]["slot"] == "0",
+                  "the process trial did not run in a child of slot 0")
+        else:
+            got = summary["launches"]
+        check(got == want, f"sweep {name} launches {got}, expected {want}")
+        best = json.loads(best_path.read_text())
+        check(list(best) == BEST_CONFIG_KEYS, f"sweep {name} best_config keys {list(best)}")
+        exploits = [line for line in proc.stdout.splitlines() if "PBT exploit" in line]
+        loaded = sum("loaded donor checkpoint" in line for line in exploits)
+        if name == "pbt":
+            print(f"sweep pbt: {len(exploits)} exploits, {loaded} loaded a donor checkpoint")
+            check(loaded > 0, "no PBT exploit loaded a donor checkpoint")
+        rates = [m["train_patches_per_s"] for t in trials for m in t["history"]]
+        peak = max([summary["max_memory_gib"]]
+                   + [m["max_memory_gib"] for t in trials for m in t["history"]])
+        runs[name] = {
+            "seconds": seconds, "kernel_build_s": summary["kernel_build_s"],
+            "search_s": summary["seconds"], "trials": len(trials),
+            "statuses": [t["status"] for t in trials], "epochs": [t["epochs"] for t in trials],
+            "latent_dims": [t["config"]["latent_dim"] for t in trials],
+            "train_patches_per_s": rates, "best_loss": min(t["loss"] for t in trials),
+            "peak_memory_gib": peak, "launches": got, "exploits": len(exploits),
+            "exploits_loaded": loaded,
+        }
+        print(f"sweep {name}: {len(trials)} trials {runs[name]['statuses']} in {seconds:.1f} s "
+              f"(search {summary['seconds']:.1f} s); train patches/s per trial epoch "
+              f"{min(rates):.0f}-{max(rates):.0f}; peak {peak:.3f} GiB; launches {got}")
+
+    # retrain from the ASHA run's best config, one epoch at the CLI's defaults
+    best_cfg = json.loads((tmp / "sweep" / "asha" / "best_config.json").read_text())
+    ckpt = tmp / "sweep" / "retrain" / "rvae_best.pt"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out, printed = _quiet(train_rvae_with_best.main, [
+        "--config", str(tmp / "sweep" / "asha" / "best_config.json"), "--override-epochs", "1",
+        *CLI_DATA, "--checkpoint", str(ckpt)])
+    torch.cuda.synchronize()
+    launches = counts()
+    check("Loaded best config from" in printed, "train_rvae_with_best did not read the config")
+    _check_epochs(out, "train_rvae_with_best", per_step={"rot3_fwd": 3, "rot3_bwd": 2},
+                  per_val_batch={"rot3_fwd": 3})
+    check(launches == out["epochs"][0]["launches"], f"with_best launches {launches}")
+    state, payload = load_reference_checkpoint(out["final_checkpoint"])
+    retrained = RVAE(int(best_cfg["latent_dim"]), 1, PATCH, "bfloat16", device="cuda")
+    retrained.load_state_dict(state, strict=True)
+    check(math.isclose(payload["args"]["lr"], best_cfg["lr"]) and
+          payload["args"]["latent_dim"] == best_cfg["latent_dim"],
+          "the retrain's checkpoint does not carry the best config")
+    runs["with_best"] = {"latent_dim": best_cfg["latent_dim"], "epochs": _epoch_rates(out),
+                         "train_loss": out["epochs"][0]["metrics"]["train_loss"],
+                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "launches": launches}
+
+    rows, _ = _quiet(compare_training_methods.main, [
+        "--checkpoint", str(ckpt), "--results-dir", str(tmp / "ray_results" / "asha"),
+        "--out", str(tmp / "sweep" / "method_comparison.png")])
+    check([r["method"] for r in rows] == ["standard", "sweep (best trial)"],
+          "compare_training_methods rows")
+    missing = _missing("pandas")
+    if missing:
+        print(f"sweep: skipped analyze_raytune_results: {', '.join(missing)} is not importable "
+              f"here")
+    else:
+        _quiet(analyze_raytune_results.main, ["--results-dir", str(tmp / "ray_results" / "asha"),
+                                              "--csv", str(tmp / "sweep" / "asha.csv")])
+        check((tmp / "sweep" / "asha.csv").exists(), "analyze_raytune_results wrote no CSV")
+    return runs
+
+
 def port_bench_phase():
     """python -m livae_tpu_torch.bench in a process of its own: exit code 0 and
     one JSON line on stdout."""
@@ -1124,6 +1474,7 @@ def port_bench_phase():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
@@ -1145,33 +1496,49 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
-    err, ms, bound = kernel_phase()
-    s_err, s_ms, s_bound, s_cases = shear_kernel_phase()
-    agreement_phase()
-    ds, build_s = bench_dataset()
-    main = main_path(ds, build_s)
+    seconds = {"build": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    err, ms, bound = timed("kernel", kernel_phase)
+    s_err, s_ms, s_bound, s_cases = timed("shear_kernel", shear_kernel_phase)
+    timed("agreement", agreement_phase)
+    ds, build_s = timed("bench_dataset", bench_dataset)
+    main = timed("main_path", main_path, ds, build_s)
     print("main_path " + json.dumps({"card": smi, **main}))
-    rot_launches = rotation_path_phase()
-    exact = exact_train_phase(ds)
+    peaks = timed("device_peaks", device_peaks_phase)
+    print("device_peaks " + json.dumps({"card": smi, **peaks}))
+    host_loop = timed("host_loop", host_loop_phase, ds)
+    print("host_loop " + json.dumps({"card": smi, **host_loop}))
+    rot_launches = timed("rotation", rotation_path_phase)
+    exact = timed("exact_resample", exact_train_phase, ds)
     print("exact_resample_path " + json.dumps({"card": smi, **exact}))
-    bench, bench_launches = bench_phase()
+    bench, bench_launches = timed("bench_rotate", bench_phase)
     print("bench_rotate " + json.dumps({"card": smi, "us_per_patch": bench}))
     with tempfile.TemporaryDirectory(prefix="livae_smoke_") as tmp:
-        rvae_cli = train_rvae_phase(Path(tmp))
+        rvae_cli = timed("train_rvae", train_rvae_phase, Path(tmp))
         print("train_rvae " + json.dumps({"card": smi, **rvae_cli}))
-        vae_cli = train_vae_phase(Path(tmp))
+        vae_cli = timed("train_vae", train_vae_phase, Path(tmp))
         print("train_vae " + json.dumps({"card": smi, **vae_cli}))
         final = Path(tmp) / "rvae" / "rvae_best_final.pt"
-        analysis, analysis_ds = analysis_phase(Path(tmp), final)
+        analysis, analysis_ds = timed("analysis", analysis_phase, Path(tmp), final)
         print("analysis " + json.dumps({"card": smi, **analysis}))
-        rot_inv = rotation_invariance_phase(final, analysis_ds)
+        rot_inv = timed("rotation_invariance", rotation_invariance_phase, final, analysis_ds)
         print("rotation_invariance " + json.dumps({"card": smi, **rot_inv}))
-        pretrain = pretrain_stn_phase(Path(tmp))
+        pretrain = timed("pretrain_stn", pretrain_stn_phase, Path(tmp))
         print("pretrain_stn " + json.dumps({"card": smi, **pretrain}))
-    patches = patch_dataset_phase()
+        sweep = timed("sweep", sweep_phase, Path(tmp), rvae_cli["sites"])
+        print("sweep " + json.dumps({"card": smi, **sweep}))
+    patches = timed("patch_dataset", patch_dataset_phase)
     print("patch_dataset " + json.dumps({"card": smi, **patches}))
-    vae_agreement_phase()
-    print("bench " + port_bench_phase())
+    timed("vae_agreement", vae_agreement_phase)
+    print("bench " + timed("bench", port_bench_phase))
+    print("phase_seconds " + json.dumps({"card": smi, **seconds,
+                                         "total": time.perf_counter() - t_start}))
     # kernel C runs on the rotation paths of this slice, not on the paired main path
     shear_launches = {k: rot_launches[k] + bench_launches[k] for k in rot_launches}
     check(shear_launches["shear_fwd"] > 0 and shear_launches["shear_bwd"] > 0,
@@ -1200,7 +1567,9 @@ def main() -> int:
                "exact_resample": exact["launches"], "train_rvae": rvae_cli["launches"],
                "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"],
                "analysis": analysis["launches"], "rotation_invariance": rot_inv["launches"],
-               "pretrain_stn": pretrain["launches"]}
+               "pretrain_stn": pretrain["launches"], "device_peaks": peaks["launches"],
+               "host_loop": host_loop["launches"],
+               **{f"sweep_{name}": run["launches"] for name, run in sweep.items()}}
     for k in kernels:  # each driven path's own count, read just after it ran
         k["launches_by_path"] = {path: got[k["name"]] for path, got in by_path.items()}
     for k in kernels[:2]:  # the rot3 launch plan at the main path's canvas

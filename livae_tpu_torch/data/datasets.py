@@ -151,8 +151,9 @@ class AdaptiveLatticeDataset(_SiteDatasetBase):
     """Adaptive lattice sites (atoms and vacancies) with augmentation.
 
     Defaults padding=48, detection_threshold=0.6. `normalize=False` skips the
-    per-patch min-max. `device_peaks=True` (peak detection on the device) is
-    not ported yet.
+    per-patch min-max. `device_peaks=True` detects the atoms on the dataset's
+    device (`ops.lattice.detect_atoms_device`) instead of the host's maximum
+    filter.
     """
 
     def __init__(
@@ -167,11 +168,6 @@ class AdaptiveLatticeDataset(_SiteDatasetBase):
         *,
         device=None,
     ):
-        if device_peaks:
-            raise NotImplementedError(
-                "device_peaks=True needs the device peak detection, which is still to be "
-                "ported (ROADMAP queue 1, item 13); build with device_peaks=False"
-            )
         self.detection_threshold = detection_threshold
         self.device_peaks = device_peaks
         self._NORMALIZE = bool(normalize)
@@ -186,7 +182,7 @@ class AdaptiveLatticeDataset(_SiteDatasetBase):
         for img, spacing in zip(self.images, self.lattice_spacings):
             sites, labels, _ = build_adaptive_lattice(
                 img, self.patch_size, self.padding, self.detection_threshold,
-                lattice_spacing=spacing,
+                lattice_spacing=spacing, device_peaks=self.device_peaks, device=self.device,
             )
             n_atoms = int((labels == 1).sum())
             print(

@@ -21,10 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "BUILD_LOG", "build_all", "load"]
+__all__ = ["BUILD_DIR", "SOURCES", "BUILD_LOG", "build_all", "is_built", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -38,6 +39,7 @@ NVCC_FLAGS = (
 # name -> nvcc's output (ptxas register / shared-memory report) of the last build
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # one build and one load per kernel, whatever the threads
 
 
 def _nvcc() -> str:
@@ -58,6 +60,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def is_built(name: str) -> bool:
+    """Whether kernel `name`'s library for the current sources is on disk."""
+    return _target(name).exists()
+
+
 def build_all(names=None) -> float:
     """Compile the named kernels (default: all) that are not built yet.
 
@@ -65,7 +72,7 @@ def build_all(names=None) -> float:
     wall-clock seconds spent. Raises RuntimeError on any failed build.
     """
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not is_built(n)]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -94,9 +101,10 @@ def build_all(names=None) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _LIBS[name] = lib
     return lib

@@ -17,13 +17,15 @@ once to the input dtype.
   tensors the kernels; there is no fallback from one to the other.
 
 `FWD_LAUNCHES` and `BWD_LAUNCHES` count kernel launches, so a run can show
-that its path went through the kernels.
+that its path went through the kernels; a lock keeps the counts exact when
+several threads launch (the sweep's thread executor).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -38,6 +40,18 @@ __all__ = [
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(direction: str) -> None:
+    """Add one to the launch count of `direction` ("fwd" or "bwd")."""
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    with _COUNT_LOCK:
+        if direction == "fwd":
+            FWD_LAUNCHES += 1
+        else:
+            BWD_LAUNCHES += 1
+
 
 # The kernels' limit (ops/csrc/rot3.cu, kMaxP): about the largest canvas whose
 # backward fits a cluster of 8 blocks. Larger canvases take the per-shear path.
@@ -147,7 +161,6 @@ def _check(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> tuple[i
 
 def _launch_fwd(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor,
                 cluster: int | None = None) -> torch.Tensor:
-    global FWD_LAUNCHES
     B, P = _check(x, d_row, d_col)
     plan = launch_plan(P, "fwd", cluster)
     lib = _lib()
@@ -163,13 +176,12 @@ def _launch_fwd(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"rot3 forward kernel launch failed: CUDA error {err} ({plan})")
-    FWD_LAUNCHES += 1
+    _count_launch("fwd")
     return out
 
 
 def _launch_bwd(x, d_row, d_col, g, with_dx: bool = True, cluster: int | None = None):
     """(dx or None, d d_row, d d_col); with_dx=False launches the dx-free variant."""
-    global BWD_LAUNCHES
     B, P = _check(x, d_row, d_col)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("rot3 backward: the cotangent must match x in shape, dtype and device")
@@ -191,7 +203,7 @@ def _launch_bwd(x, d_row, d_col, g, with_dx: bool = True, cluster: int | None = 
         )
     if err != 0:
         raise RuntimeError(f"rot3 backward kernel launch failed: CUDA error {err} ({plan})")
-    BWD_LAUNCHES += 1
+    _count_launch("bwd")
     return dx, ddr, ddc
 
 

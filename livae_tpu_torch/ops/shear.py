@@ -22,12 +22,14 @@ per-shear path of ops.resample.rotate_image_fast).
   other.
 
 `FWD_LAUNCHES` and `BWD_LAUNCHES` count kernel launches, so a run can show
-that its path went through the kernels.
+that its path went through the kernels; a lock keeps the counts exact when
+several threads launch (the sweep's thread executor).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -49,6 +51,18 @@ __all__ = [
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(direction: str) -> None:
+    """Add one to the launch count of `direction` ("fwd" or "bwd")."""
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    with _COUNT_LOCK:
+        if direction == "fwd":
+            FWD_LAUNCHES += 1
+        else:
+            BWD_LAUNCHES += 1
+
 
 THREADS = 256  # per block (kThreads in ops/csrc/shear.cu)
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on sm_90
@@ -238,7 +252,6 @@ def _check(x: torch.Tensor, delta: torch.Tensor, axis: int) -> tuple[int, int, i
 
 def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int,
                 plan: ShearPlan | None = None) -> torch.Tensor:
-    global FWD_LAUNCHES
     B, H, W = _check(x, delta, axis)
     plan = plan or launch_plan(B, H, W, axis, "fwd", x.dtype)
     lib = _lib()
@@ -252,14 +265,13 @@ def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int,
                                   stream)
     if err != 0:
         raise RuntimeError(f"shear forward kernel launch failed: CUDA error {err} ({plan})")
-    FWD_LAUNCHES += 1
+    _count_launch("fwd")
     return out
 
 
 def _launch_bwd(x: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, axis: int,
                 with_dx: bool = True, plan: ShearPlan | None = None):
     """(dx or None, d delta); with_dx=False launches the dx-free variant."""
-    global BWD_LAUNCHES
     B, H, W = _check(x, delta, axis)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("shear backward: the cotangent must match x in shape, dtype and device")
@@ -278,7 +290,7 @@ def _launch_bwd(x: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, axis: int
                                   plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"shear backward kernel launch failed: CUDA error {err} ({plan})")
-    BWD_LAUNCHES += 1
+    _count_launch("bwd")
     return dx, ddelta
 
 

@@ -13,10 +13,16 @@ the mean-reduced VAE loss on its rotated reconstruction).
 The train steps update the model's parameters and the optimizer state in
 place, clip the gradients in place over every parameter of the model, and
 advance `scheduler` (from `make_schedule`) once per optimizer step.
+
+The host-loop trainers (`train_one_epoch`, `evaluate`, `train_rvae_one_epoch`,
+`evaluate_rvae`) drive the per-batch steps over given batches (a dataset's
+`iter_epoch`), with batch i's noise drawn from a generator seeded from
+(seed, i), and put the epoch's means into a MetricLogger.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from collections import defaultdict
 from typing import Any, Iterable, Sequence
@@ -52,6 +58,10 @@ __all__ = [
     "make_eval_step",
     "make_rvae_eval_step",
     "evaluate_fused",
+    "train_one_epoch",
+    "evaluate",
+    "train_rvae_one_epoch",
+    "evaluate_rvae",
     "evaluate_rotation_invariance",
     "log_scalar_metrics_tensorboard",
     "log_reconstructions_tensorboard",
@@ -567,6 +577,81 @@ def metrics_to_host(metrics: dict) -> dict[str, np.ndarray]:
         out[n] = flat[off : off + v.numel()].reshape(tuple(v.shape))
         off += v.numel()
     return out
+
+
+def _accumulate_epoch(metric_dicts: list[dict]) -> dict[str, float]:
+    """Sum per-batch metric dicts on the device (in batch order); one host
+    read; the means over the batches."""
+    if not metric_dicts:
+        return {}
+    acc = dict(metric_dicts[0])
+    for m in metric_dicts[1:]:
+        acc = {k: acc[k] + m[k] for k in acc}
+    n = len(metric_dicts)
+    return {k: float(v) / n for k, v in metrics_to_host(acc).items()}
+
+
+def _batch_generator(seed: int, i: int, device) -> torch.Generator:
+    """Batch i's generator on `device`, seeded from (seed, i): where the JAX
+    package takes fold_in(key, i)."""
+    digest = hashlib.sha256(f"{seed}/batch/{i}".encode()).digest()
+    return torch.Generator(device=device).manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+
+
+def _log_epoch(collected: list[dict], metric_logger: MetricLogger, prefix: str) -> dict[str, float]:
+    avg = {prefix + k: v for k, v in _accumulate_epoch(collected).items()}
+    metric_logger.update(**avg)
+    return avg
+
+
+def train_one_epoch(step_fn, batches: Iterable, seed: int, metric_logger: MetricLogger,
+                    beta: float = 1.0, gamma: float = 0.0,
+                    prefix: str = "train_") -> dict[str, float]:
+    """Epoch loop over unpaired batches (a tuple's first element is the batch)
+    with a step from `make_train_step`; returns the epoch's prefixed means."""
+    collected = []
+    for i, x in enumerate(batches):
+        if isinstance(x, (list, tuple)):
+            x = x[0]
+        collected.append(step_fn(x, beta, gamma, generator=_batch_generator(seed, i, x.device)))
+    return _log_epoch(collected, metric_logger, prefix)
+
+
+def evaluate(eval_step_fn, batches: Iterable, seed: int, metric_logger: MetricLogger,
+             beta: float = 1.0, gamma: float = 0.0, prefix: str = "val_") -> dict[str, float]:
+    """Eval loop over unpaired batches with a step from `make_eval_step`; every
+    batch weighs the same. Returns the prefixed means."""
+    collected = []
+    for i, x in enumerate(batches):
+        if isinstance(x, (list, tuple)):
+            x = x[0]
+        collected.append(eval_step_fn(x, beta, gamma,
+                                      generator=_batch_generator(seed, i, x.device)))
+    return _log_epoch(collected, metric_logger, prefix)
+
+
+def train_rvae_one_epoch(step_fn, paired_batches: Iterable, seed: int,
+                         metric_logger: MetricLogger, beta: float = 1.0, gamma: float = 0.0,
+                         prefix: str = "train_") -> dict[str, float]:
+    """Epoch loop over (x, x_rot, angle) batches with a step from
+    `make_rvae_train_step`; returns the epoch's prefixed means."""
+    collected = []
+    for i, (x, x_rot, angle) in enumerate(paired_batches):
+        collected.append(step_fn(x, x_rot, angle, beta, gamma,
+                                 generator=_batch_generator(seed, i, x.device)))
+    return _log_epoch(collected, metric_logger, prefix)
+
+
+def evaluate_rvae(eval_step_fn, paired_batches: Iterable, seed: int,
+                  metric_logger: MetricLogger, beta: float = 1.0, gamma: float = 0.0,
+                  prefix: str = "val_") -> dict[str, float]:
+    """Paired eval loop with a step from `make_rvae_eval_step`; every batch
+    weighs the same. Returns the prefixed means."""
+    collected = []
+    for i, (x, x_rot, angle) in enumerate(paired_batches):
+        collected.append(eval_step_fn(x, x_rot, angle, beta, gamma,
+                                      generator=_batch_generator(seed, i, x.device)))
+    return _log_epoch(collected, metric_logger, prefix)
 
 
 # TensorBoard logging (the JAX package's tag schema)

@@ -15,6 +15,8 @@ that touches a flattened conv map.
 
 from __future__ import annotations
 
+import os
+import threading
 from pathlib import Path
 from typing import Any
 
@@ -224,10 +226,14 @@ def _to_cpu_tensors(obj: Any) -> Any:
 
 def save_checkpoint(path: str | Path, payload: dict) -> None:
     """Write a torch.load-compatible checkpoint file: arrays and tensors
-    become CPU tensors, everything else is pickled as it is."""
+    become CPU tensors, everything else is pickled as it is. The file is
+    written beside `path` and renamed over it, so a reader (a sweep's PBT
+    exploit of a running trial) never sees a partial file."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(_to_cpu_tensors(payload), path)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    torch.save(_to_cpu_tensors(payload), tmp)
+    os.replace(tmp, path)
 
 
 def load_checkpoint(path: str | Path) -> dict:

@@ -137,10 +137,25 @@ def test_patch_dataset_plot_peaks(small_frame, tmp_path):
     assert out.stat().st_size > 1000
 
 
-def test_device_peaks_is_refused_by_name(small_frame):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        td.AdaptiveLatticeDataset([small_frame], patch_size=32, padding=8, device_peaks=True,
-                                  device="cpu")
+def test_device_peaks_equals_host_build(small_frame):
+    """device_peaks=True builds the same sites and labels as the host build
+    (as lexsorted sets: the atoms come in another order), and the same table
+    as livae_tpu's device_peaks=True, in its order."""
+    kw = dict(patch_size=32, padding=8)
+    dev = td.AdaptiveLatticeDataset([small_frame], device_peaks=True, device="cpu", **kw)
+    host = td.AdaptiveLatticeDataset([small_frame], device="cpu", **kw)
+    ref = jd.AdaptiveLatticeDataset([small_frame], device_peaks=True, **kw)
+    assert dev.device_peaks and len(dev) == len(host) > 100
+
+    def table(ds):
+        sites, labels = ds.sample_coords[0], ds.labels[0]
+        order = np.lexsort((sites[:, 1], sites[:, 0]))
+        return sites[order], labels[order]
+
+    for got, want in zip(table(dev), table(host)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(dev._coords_flat, ref._coords_flat)
+    np.testing.assert_array_equal(dev.labels[0], ref.labels[0])
 
 
 def test_paired_dataset_is_an_adaptive_lattice_dataset(pair):

@@ -2,7 +2,7 @@
 
 * Importing livae_tpu_torch, every submodule and chip_smoke.py loads no JAX
   and nothing of livae_tpu, and builds no kernel; it also needs none of the
-  optional packages (h5py, tensorboardX, matplotlib, sklearn), which are
+  optional packages (h5py, tensorboardX, matplotlib, sklearn, pandas), which are
   imported where they are used.
 * Every entry point raises when CUDA is wanted by default and absent.
 * rot3 and the fractional shift on a CPU tensor take the plain version and
@@ -31,7 +31,7 @@ import importlib, pkgutil, sys
 
 class _Blocked:
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "livae_tpu", "h5py", "tensorboardX",
-               "matplotlib", "sklearn")
+               "matplotlib", "sklearn", "pandas")
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.BLOCKED:
@@ -54,7 +54,10 @@ print("MODULES", " ".join(names))
 NEW_MODULES = ["bench", "data.h5", "scripts._common", "scripts.train_rvae", "scripts.train_vae",
                "utils.resume", "models.vae", "train.state", "utils.checkpoint",
                "scripts.visualizations", "scripts.plot_tsne_by_image",
-               "scripts.verify_rotational_invariance", "scripts.pretrain_stn"]
+               "scripts.verify_rotational_invariance", "scripts.pretrain_stn",
+               "sweep", "sweep.search", "scripts.train_rvae_raytune",
+               "scripts.train_rvae_with_best", "scripts.analyze_raytune_results",
+               "scripts.compare_training_methods", "scripts.test_raytune_deps"]
 
 
 def test_port_imports_no_jax_and_builds_nothing():
@@ -68,7 +71,8 @@ def test_port_imports_no_jax_and_builds_nothing():
 
 
 def test_optional_packages_are_imported_where_they_are_used():
-    """h5py, tensorboardX, matplotlib and sklearn appear only inside functions."""
+    """h5py, tensorboardX, matplotlib, sklearn and pandas appear only inside
+    functions."""
     import ast
 
     for path in sorted((REPO / "livae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
@@ -76,7 +80,7 @@ def test_optional_packages_are_imported_where_they_are_used():
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
                 assert not any(n.split(".")[0] in ("h5py", "tensorboardX", "matplotlib",
-                                                   "sklearn")
+                                                   "sklearn", "pandas")
                                for n in names), f"{path.name} imports {names} at module level"
 
 
@@ -233,3 +237,19 @@ def test_analysis_scripts_build_before_their_dataset(monkeypatch, tmp_path):
     with pytest.raises(_Stop):
         visualizations.load_for_analysis(args, None, images=[np.zeros((8, 8))])
     assert order == [("build", "cpu"), "dataset"]
+
+
+@pytest.mark.parametrize("executor", ["thread", "process"])
+def test_sweep_builds_before_its_first_trial(monkeypatch, tmp_path, executor):
+    """train_rvae_raytune builds the kernels in the parent, before any trial
+    (a thread or a spawned child) starts: the trials only load them."""
+    from livae_tpu_torch.scripts import train_rvae_raytune as sweep
+
+    order = []
+    monkeypatch.setattr(sweep, "prebuild_kernels",
+                        lambda device: order.append(("build", device.type)) or 0.0)
+    monkeypatch.setattr(sweep, "resolve_images", lambda args: [np.zeros((8, 8))])
+    monkeypatch.setattr(sweep, "run_search", lambda *a, **k: order.append("trials") or [])
+    sweep.run_hyperparameter_search(sweep.build_argparser().parse_args(
+        ["--cpu", "--executor", executor, "--ray-results-dir", str(tmp_path)]))
+    assert order == [("build", "cpu"), "trials"]
