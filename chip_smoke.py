@@ -93,6 +93,20 @@ Run from the repository root:  python3 chip_smoke.py
    `train_rvae_with_best --override-epochs 1` in-process on the ASHA run's
    best config (its checkpoint loads), `compare_training_methods`, and
    `analyze_raytune_results` where pandas is importable.
+13. stacked: `train_rvae_raytune --stacked 4` in-process on the sweep's data
+   at the CLI's widths (4 lanes of batch 512, 2 epochs, bf16): every trial
+   done, a checkpoint per lane, rot3's launches per epoch 2 per train step
+   and 2 per val batch forward and 2 per train step backward, whatever K;
+   lane 0's first epoch in f32 (TF32 off) against trial 0's sequential fused
+   step at 2e-4; rot3 under torch.func.vmap (one launch on the folded batch)
+   against the plain version lane by lane at [2 | 4 | 8, 512, 256, 256] and
+   [4, 193, 256, 256] (forward and dx bit-equal), and
+   `rotate_image_fast(backend="shear")` under vmap on [2, 64, 3, 128, 128].
+14. compare: `compare_vae_rvae` at its defaults, `compare_resample_elbo
+   --synthetic 1 --train-epochs 1` (the relative delta against the ELBO gate
+   of BASELINE.json), `accuracy_program` with one config for 2 epochs on one
+   training frame at the CLI's widths (its sklearn metrics skipped, and said
+   so, where sklearn is not importable); each one's rot3 launches.
 Around each driven path the launch counters are zeroed just before and read
 just after (a sweep's processes report their own). A `phase_seconds` line
 gives each phase's wall-clock seconds. The build step prints each kernel's registers and spills (ptxas);
@@ -126,7 +140,12 @@ import numpy as np
 import torch
 
 from livae_tpu_torch import bench_rotate
-from livae_tpu_torch.data.datasets import PairedAdaptiveLatticeDataset, PatchDataset
+from livae_tpu_torch.data.datasets import (
+    AdaptiveLatticeDataset,
+    PairedAdaptiveLatticeDataset,
+    PatchDataset,
+    default_transform,
+)
 from livae_tpu_torch.data.synthetic import synthetic_mos2_frame
 from livae_tpu_torch.models.rvae import RVAE
 from livae_tpu_torch.models.vae import VAE
@@ -252,11 +271,15 @@ EDGE_B, EDGE_P = 3, (2, 33, 130, 255, R.MAX_P)  # ragged bands, clusters below 8
 # batch of train_rvae and pretrain_stn (705 val sites at batch 512), the
 # analysis's batches of 256 (the STN's and the inverse rotation) and its ragged
 # tail (225 of the 3041 sites the two frames give at padding 16), and the probes
-# of check_invariance and evaluate_rotation_invariance. The pretraining's train
-# batches are SHAPE. The phases that drive them check that their shape is held
-# here.
+# of check_invariance and evaluate_rotation_invariance; compare_resample_elbo's
+# batches of 140 (the bench frame's 140 val sites), accuracy_program's held-out
+# tail (1446 sites at batch 512) and compare_vae_rvae's batch of 32 at patch 64
+# (canvas 128). The pretraining's train batches are SHAPE. The phases that
+# drive them check that their shape is held here; the stacked phase holds its
+# folded batches under vmap (VMAP_ROT3_LANES).
 PATH_SHAPES = [(512, 180, 180), (193, 256, 256), (256, 256, 256), (225, 256, 256),
-               (INVARIANCE_PROBES, 256, 256), (ROTATION_PROBES, 256, 256)]
+               (INVARIANCE_PROBES, 256, 256), (ROTATION_PROBES, 256, 256),
+               (140, 256, 256), (422, 256, 256), (32, 128, 128)]
 
 
 def _rot3_errors(x, w, d_row, d_col):
@@ -1454,6 +1477,287 @@ def sweep_phase(tmp: Path, sites):
     return runs
 
 
+STACK_K, STACK_EPOCHS = 4, 2
+# rot3 under vmap, as (lanes, canvases per lane): 2 lanes of the main path's
+# batch, the stacked phase's folded batches (K x 512 train and val steps, K x
+# 193 for the val tail) and 8 x 512 = 4096 canvases (268 M elements: the
+# launch plan and rot3.cu's long index arithmetic at bench_stacked's K = 8)
+VMAP_ROT3_LANES = [(2, BATCH), (STACK_K, BATCH), (STACK_K, 193), (8, BATCH)]
+
+
+class _PlainShift(torch.autograd.Function):
+    """Kernel C's plain version with the JAX package's VJP
+    (`fractional_shift_vjp_reference`), which the kernel's backward follows."""
+
+    @staticmethod
+    def forward(x, delta, axis):
+        return SH.fractional_shift_reference(x, delta, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, delta, axis = inputs
+        ctx.axis = axis
+        ctx.save_for_backward(x, delta)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, delta = ctx.saved_tensors
+        dx, ddelta = SH.fractional_shift_vjp_reference(x, delta, g, ctx.axis)
+        return dx, ddelta, None
+
+
+def _vmap_kernel_checks():
+    """The kernels under torch.func.vmap (the stacked trials' rule: the lanes
+    fold into the batch, one launch) against their plain versions lane by
+    lane: rot3 at VMAP_ROT3_LANES in bf16 (and 2 lanes in f32) with the shifts
+    of real rotations, and rotate_image_fast(backend="shear") on
+    [2, 64, 3, 128, 128] (kernel C). Forward and dx bit-equal; the delta and
+    angle gradients at the kernel phases' 1e-4 x max(1, scale)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    P = SHAPE[1]
+    result = {}
+    cases = [(k, b, torch.bfloat16) for k, b in VMAP_ROT3_LANES] + [(2, BATCH, torch.float32)]
+    for K, B, dtype in cases:
+        x = torch.randn((K, B, P, P), device=dev, generator=gen).to(dtype)
+        w = torch.randn((K, B, P, P), device=dev, generator=gen).to(dtype)
+        d_row, d_col = (d.unflatten(0, (K, B)) for d in _deltas("rotation", gen, K * B, P))
+        ins = [t.clone().requires_grad_(True) for t in (x, d_row, d_col)]
+        zero_counts()
+        y = torch.func.vmap(R.Rot3Function.apply)(*ins)
+        gk = torch.autograd.grad(y, ins, w)
+        torch.cuda.synchronize()
+        launched = counts()
+        check(launched["rot3_fwd"] == 1 and launched["rot3_bwd"] == 1,
+              f"rot3 under vmap over {K} lanes launched {launched}, not once each way")
+        fe, ge, scale = 0.0, [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+        for k in range(K):  # the plain version lane by lane
+            lane = [t[k].detach().clone().requires_grad_(True) for t in (x, d_row, d_col)]
+            y_ref = R.rot3_reference(*lane)
+            gr = torch.autograd.grad(y_ref, lane, w[k])
+            fe = max(fe, (y[k].float() - y_ref.float()).abs().max().item())
+            for i in range(3):
+                ge[i] = max(ge[i], (gk[i][k].float() - gr[i].float()).abs().max().item())
+                scale[i] = max(scale[i], gr[i].float().abs().max().item())
+            del y_ref, gr, lane
+        tol = [1e-4 * max(1.0, v) for v in scale[1:]]
+        what = f"rot3 under vmap [{K}, {B}, {P}, {P}] {str(dtype)[6:]}"
+        print(f"{what}: one launch each way on {K * B} canvases; fwd max_abs_err {fe:.3e} "
+              f"(tol 0) dx {ge[0]:.3e} (tol 0) d_row {ge[1]:.3e} (tol {tol[0]:.1e}) "
+              f"d_col {ge[2]:.3e} (tol {tol[1]:.1e})")
+        check(fe == 0.0 and ge[0] == 0.0, f"{what}: forward or dx differs from the plain version")
+        check(ge[1] <= tol[0] and ge[2] <= tol[1], f"{what}: delta gradients")
+        result[f"rot3 {K}x{B} {str(dtype)[6:]}"] = {"fwd": fe, "dx": ge[0], "d_row": ge[1],
+                                                    "d_col": ge[2]}
+        del x, w, d_row, d_col, ins, y, gk
+        torch.cuda.empty_cache()
+
+    # kernel C: three channels take the per-shear path
+    from livae_tpu_torch.ops import resample as RS
+
+    K, B, C, S = 2, 64, 3, PATCH
+    x = torch.rand((K, B, C, S, S), device=dev, generator=gen)
+    w = torch.randn((K, B, C, S, S), device=dev, generator=gen)
+    theta = (torch.rand((K, B, 1), device=dev, generator=gen) - 0.5) * 2 * math.pi
+    ins = [x.clone().requires_grad_(True), theta.clone().requires_grad_(True)]
+    zero_counts()
+    y = torch.func.vmap(lambda a, t: rotate_image_fast(a, t, backend="shear"))(*ins)
+    gk = torch.autograd.grad(y, ins, w)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched == {**NO_LAUNCH, "shear_fwd": 3, "shear_bwd": 3},
+          f"rotate_image_fast(shear) under vmap launched {launched}")
+    kernel_shift = RS.fractional_shift
+    RS.fractional_shift = _PlainShift.apply
+    try:
+        fe = dxe = dte = dts = 0.0
+        for k in range(K):
+            lane = [x[k].clone().requires_grad_(True), theta[k].clone().requires_grad_(True)]
+            y_ref = rotate_image_fast(*lane, backend="shear")
+            gr = torch.autograd.grad(y_ref, lane, w[k])
+            fe = max(fe, (y[k] - y_ref).abs().max().item())
+            dxe = max(dxe, (gk[0][k] - gr[0]).abs().max().item())
+            dte = max(dte, (gk[1][k] - gr[1]).abs().max().item())
+            dts = max(dts, gr[1].abs().max().item())
+    finally:
+        RS.fractional_shift = kernel_shift
+    tol = 1e-4 * max(1.0, dts)
+    print(f"rotate_image_fast(shear) under vmap {[K, B, C, S, S]} f32: 3 launches each way on "
+          f"{K * B * C} canvases of {S + 2 * aligned_margin(S)}; fwd max_abs_err {fe:.3e} (tol 0) "
+          f"dx {dxe:.3e} (tol 0) d theta {dte:.3e} (tol {tol:.1e})")
+    check(fe == 0.0 and dxe == 0.0, "rotate_image_fast(shear) under vmap: forward or dx differs")
+    check(dte <= tol, "rotate_image_fast(shear) under vmap: the angle's gradient")
+    result["shear 2x64x3"] = {"fwd": fe, "dx": dxe, "d_theta": dte}
+    return result
+
+
+def stacked_phase(tmp: Path, sites):
+    """Stacked trials: the sweep CLI with --stacked 4 in-process on the entry
+    points' data at the CLI's widths (4 lanes, 2 epochs, bf16), its rot3
+    launches per epoch (2 per train step and 2 per val batch forward, 2 per
+    train step backward, whatever K); lane 0's first train epoch in f32 (TF32
+    off) against the sequential fused step of trial 0; the kernels under
+    vmap against their plain versions."""
+    from livae_tpu_torch.scripts import train_rvae_raytune
+    from livae_tpu_torch.scripts._common import epoch_index_batches, split_indices, stream_generator
+    from livae_tpu_torch.sweep import make_stacked_fns, set_stacked_hyperparams
+    from livae_tpu_torch.sweep.stacked import StackedState
+    from livae_tpu_torch.train.engine import make_fused_vae_train_step
+
+    n, n_train, n_val = sites
+    steps, val_batches = n_train // BATCH, -(-n_val // BATCH)
+    check(val_batches == 2 and n_val % BATCH == VMAP_ROT3_LANES[2][1],
+          f"the vmap checks do not hold rot3 at the stacked val tail {STACK_K} x {n_val % BATCH}")
+    result = {"vmap_checks": _vmap_kernel_checks()}
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    args = train_rvae_raytune.build_argparser().parse_args([
+        *SWEEP_DATA, "--stacked", str(STACK_K), "--num-samples", str(STACK_K),
+        "--epochs", str(STACK_EPOCHS), "--latent-dims", "16", "--ray-results-dir",
+        str(tmp / "ray_results"), "--experiment-name", "stacked", "--save-best-config",
+        str(tmp / "stacked" / "best_config.json")])
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out, printed = _quiet(train_rvae_raytune.run_hyperparameter_search, args)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    check("note: --stacked ignores --scheduler asha" in printed, "no scheduler note")
+    trials = out["trials"]
+    check(len(trials) == STACK_K and all(t.status == "done" for t in trials),
+          f"stacked trials {[t.status for t in trials]}")
+    want = {**NO_LAUNCH, "rot3_fwd": STACK_EPOCHS * (2 * steps + 2 * val_batches),
+            "rot3_bwd": STACK_EPOCHS * 2 * steps}
+    check(launches == want and out["launches"] == want,
+          f"stacked launches {launches}, expected {want} (independent of K)")
+    for t in trials:
+        check(len(t.history) == STACK_EPOCHS and Path(t.checkpoint).exists(),
+              f"stacked trial {t.trial_id}")
+        for m in t.history:
+            check(m["lanes"] == STACK_K and m["steps"] == steps and m["val_batches"] == val_batches
+                  and all(math.isfinite(m[k]) for k in ("loss", "train_loss", "val_psnr")),
+                  f"stacked trial {t.trial_id} epoch {m['epoch']}: {m}")
+    rates = [t.history[e]["train_patches_per_s"] for t in trials[:1] for e in range(STACK_EPOCHS)]
+    peak = out["max_memory_gib"]
+    result.update(lanes=STACK_K, epochs=STACK_EPOCHS, seconds=seconds, search_s=out["seconds"],
+                  train_patches_per_s=rates, peak_memory_gib=peak,
+                  peak_memory_gib_per_lane=peak / STACK_K, launches=launches,
+                  launches_per_epoch={k: v // STACK_EPOCHS for k, v in launches.items()},
+                  train_loss=[t.history[0]["train_loss"] for t in trials])
+    print(f"stacked: {STACK_K} lanes x {STACK_EPOCHS} epochs in {seconds:.1f} s; stack train "
+          f"patches/s per epoch {', '.join(f'{r:.1f}' for r in rates)}; peak {peak:.3f} GiB "
+          f"({peak / STACK_K:.3f} per lane); launches {launches} ({steps} steps and "
+          f"{val_batches} val batches per epoch)")
+
+    # lane 0 against trial 0 alone, in f32 with TF32 off (the same data and split)
+    torch.backends.cudnn.allow_tf32 = False
+    ds = AdaptiveLatticeDataset(
+        [synthetic_mos2_frame(size=1024, spacing=40.0, seed=s)[0] for s in range(2)],
+        patch_size=PATCH, padding=PADDING, transform=default_transform, device="cuda")
+    train_idx, _ = split_indices(len(ds), 0.25, seed=0)
+    train_idx = torch.as_tensor(train_idx, dtype=torch.long, device="cuda")
+    table = ds.device_site_table[:3]
+    mk = dict(patch_size=PATCH, padding=PADDING, cfg=ds.transform, margin=ds._margin,
+              grad_max_norm=20.0, device="cuda")
+    lrs, betas = [1e-3, 3e-4], [1.0, 4.0]
+
+    def f32_model(seed):
+        return RVAE(16, 1, PATCH, None, device="cuda",
+                    generator=stream_generator(seed, "init", 0, "cpu"))
+
+    gens = [stream_generator(i, "train", 0, "cuda") for i in range(2)]
+    idx = torch.stack([epoch_index_batches(train_idx, BATCH, g) for g in gens])
+    models = [f32_model(i) for i in range(2)]
+    stacked_step, _ = make_stacked_fns(models[0], **mk)
+    state = set_stacked_hyperparams(StackedState.create(models), lrs, [1e-5, 1e-5])
+    _, stacked = stacked_step(state, *table, idx, gens, betas, [0.0, 0.0])
+    model = f32_model(0)
+    step = make_fused_vae_train_step(
+        model, make_optimizer(model, lrs[0], optimizer="adamw", weight_decay=1e-5), **mk)
+    gen = stream_generator(0, "train", 0, "cuda")
+    sequential = step(*table, epoch_index_batches(train_idx, BATCH, gen), gen, betas[0], 0.0)
+    got, want = float(stacked["loss"][0]), float(sequential["loss"])
+    rel = abs(got - want) / abs(want)
+    print(f"stacked: f32 lane 0 train loss {got:.6f}, trial 0 alone {want:.6f}, relative "
+          f"difference {rel:.3e} (tol 2e-4)")
+    check(rel <= 2e-4, "stacked lane 0 disagrees with the sequential trial")
+    torch.backends.cudnn.allow_tf32 = True
+    result["f32_lane0_rel_diff"] = rel
+    return result
+
+
+def compare_phase(tmp: Path):
+    """The comparison harnesses: compare_vae_rvae at its defaults,
+    compare_resample_elbo --synthetic 1 --train-epochs 1, and
+    accuracy_program at its quickest grid (one beta, no ablation, 2 epochs,
+    one training frame) at the CLI's widths; each one's rot3 launches."""
+    from livae_tpu_torch.scripts import accuracy_program, compare_resample_elbo, compare_vae_rvae
+
+    result = {}
+    zero_counts()
+    cmp, _ = _quiet(compare_vae_rvae.main, [])
+    launches = counts()
+    # the smoke test's forward and backward, then 3 + 100 timed forwards of the
+    # rVAE: each forward the STN's rotation and the inverse one on [32, 128, 128]
+    want = {**NO_LAUNCH, "rot3_fwd": 2 + 2 * 103, "rot3_bwd": 2}
+    check(cmp["ok"] and launches == want, f"compare_vae_rvae {cmp['ok']} launches {launches}")
+    result["compare_vae_rvae"] = {k: cmp[k] for k in ("vae_params", "rvae_params", "vae_ms",
+                                                      "vae_imgs_per_s", "rvae_ms",
+                                                      "rvae_imgs_per_s")}
+    result["compare_vae_rvae"]["launches"] = launches
+    print(f"compare_vae_rvae: VAE {cmp['vae_imgs_per_s']:.0f}, rVAE {cmp['rvae_imgs_per_s']:.0f} "
+          f"imgs/s (batch 32, patch 64, f32); params {cmp['vae_params']} / {cmp['rvae_params']}")
+
+    zero_counts()
+    elbo, _ = _quiet(compare_resample_elbo.main, compare_resample_elbo.build_argparser().parse_args(
+        ["--synthetic", "1", "--train-epochs", "1"]))
+    launches = counts()
+    bs, nb = elbo["batch_size"], elbo["batches"]
+    check((bs, *SHAPE[1:]) in PATH_SHAPES, f"the kernel phase did not hold rot3 at [{bs}, 256, 256]")
+    steps = 1269 // bs  # the bench frame's 1409 sites, a tenth held out
+    # train: 3 forwards and 2 backwards per step; the eval batches' extraction
+    # 1 forward each, the fast objective 2 more; the exact one none
+    want = {**NO_LAUNCH, "rot3_fwd": 3 * steps + 3 * nb, "rot3_bwd": 2 * steps}
+    check(launches == want, f"compare_resample_elbo launches {launches}, expected {want}")
+    check(math.isfinite(elbo["relative_delta"]), f"compare_resample_elbo {elbo}")
+    result["compare_resample_elbo"] = {**elbo, "launches": launches}
+    print(f"compare_resample_elbo: fast {elbo['fast_objective']:.6f}, exact "
+          f"{elbo['exact_objective']:.6f}, relative delta {elbo['relative_delta']:.3e}; the "
+          f"{elbo['gate']:.0%} gate {'holds' if elbo['passes_1pct_gate'] else 'FAILS'}")
+
+    zero_counts()
+    args = accuracy_program.parse_args(["--betas", "1.0", "--no-norm-ablation", "--epochs", "2",
+                                        "--train-frames", "1", "--out",
+                                        str(tmp / "accuracy.json")])
+    t0 = time.perf_counter()
+    (row,), printed = _quiet(accuracy_program.main, args)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    n_held = row["eval_sites"]
+    missing = _missing("sklearn")
+    if missing:
+        print(f"compare: accuracy_program skipped kmeans_ari, linear_accuracy and vacancy_auc: "
+              f"{', '.join(missing)} is not importable here")
+        check("skipped kmeans_ari" in printed, "accuracy_program did not say what it skipped")
+    check(math.isfinite(row["kld_mean"]) and math.isfinite(row["rot90_mu_cosine"])
+          and math.isfinite(row["train_loss"]), f"accuracy_program row {row}")
+    check((1446 % BATCH, *SHAPE[1:]) in PATH_SHAPES,
+          "the kernel phase did not hold rot3 at the held-out frame's tail")
+    # 2 train steps of 3 forwards and 2 backwards per epoch (1433 sites); the
+    # held-out frame's 1446 sites in 3 batches of 2 forwards; 2 probe encodes
+    want = {**NO_LAUNCH, "rot3_fwd": 2 * 2 * 3 + 3 * 2 + 2, "rot3_bwd": 2 * 2 * 2}
+    check(launches == want, f"accuracy_program launches {launches}, expected {want}")
+    result["accuracy_program"] = {**{k: row[k] for k in ("kld_mean", "rot90_mu_cosine",
+                                                          "train_loss", "eval_sites",
+                                                          "kmeans_ari")},
+                                  "seconds": seconds, "launches": launches,
+                                  "skipped": missing}
+    print(f"compare: accuracy_program 1 config in {seconds:.1f} s, rot90 cosine "
+          f"{row['rot90_mu_cosine']:.4f}, {n_held} matched held-out sites; launches {launches}")
+    return result
+
+
 def port_bench_phase():
     """python -m livae_tpu_torch.bench in a process of its own: exit code 0 and
     one JSON line on stdout."""
@@ -1533,6 +1837,10 @@ def main() -> int:
         print("pretrain_stn " + json.dumps({"card": smi, **pretrain}))
         sweep = timed("sweep", sweep_phase, Path(tmp), rvae_cli["sites"])
         print("sweep " + json.dumps({"card": smi, **sweep}))
+        stacked = timed("stacked", stacked_phase, Path(tmp), rvae_cli["sites"])
+        print("stacked " + json.dumps({"card": smi, **stacked}))
+        compare = timed("compare", compare_phase, Path(tmp))
+        print("compare " + json.dumps({"card": smi, **compare}))
     patches = timed("patch_dataset", patch_dataset_phase)
     print("patch_dataset " + json.dumps({"card": smi, **patches}))
     timed("vae_agreement", vae_agreement_phase)
@@ -1569,7 +1877,9 @@ def main() -> int:
                "analysis": analysis["launches"], "rotation_invariance": rot_inv["launches"],
                "pretrain_stn": pretrain["launches"], "device_peaks": peaks["launches"],
                "host_loop": host_loop["launches"],
-               **{f"sweep_{name}": run["launches"] for name, run in sweep.items()}}
+               **{f"sweep_{name}": run["launches"] for name, run in sweep.items()},
+               "stacked": stacked["launches"],
+               **{name: run["launches"] for name, run in compare.items()}}
     for k in kernels:  # each driven path's own count, read just after it ran
         k["launches_by_path"] = {path: got[k["name"]] for path, got in by_path.items()}
     for k in kernels[:2]:  # the rot3 launch plan at the main path's canvas

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from .shear import lerp_shift
+from .shear import fold_lanes, lerp_shift
 
 __all__ = [
     "rot3", "rot3_reference", "Rot3Function", "MAX_P", "LaunchPlan", "launch_plan",
@@ -218,12 +218,22 @@ def active_clusters(plan: LaunchPlan, direction: str) -> int:
 
 
 class Rot3Function(torch.autograd.Function):
-    """rot3 through the CUDA kernels; the backward is the fused VJP kernel."""
+    """rot3 through the CUDA kernels; the backward is the fused VJP kernel.
+
+    Under `torch.func.vmap` (the stacked trials) the rule folds the lanes into
+    the batch: K lanes of [B, P, P] make one launch on [K * B, P, P], and the
+    backward, from plain autograd outside the vmap, one more. `torch.func.grad`
+    cannot drive the backward: it hands it a functorch-wrapped cotangent, which
+    has no data pointer for the kernel.
+    """
 
     @staticmethod
-    def forward(ctx, x, d_row, d_col):
-        ctx.save_for_backward(x, d_row, d_col)
+    def forward(x, d_row, d_col):
         return _launch_fwd(x, d_row, d_col)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -232,6 +242,11 @@ class Rot3Function(torch.autograd.Function):
         # dx-free variant skips dx's lerp and store; the deltas keep their bits
         dx, ddr, ddc = _launch_bwd(x, d_row, d_col, g, with_dx=ctx.needs_input_grad[0])
         return dx, ddr.to(d_row.dtype), ddc.to(d_col.dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, x, d_row, d_col):
+        x, d_row, d_col = fold_lanes(info.batch_size, in_dims, x, d_row, d_col)
+        return Rot3Function.apply(x, d_row, d_col).unflatten(0, (info.batch_size, -1)), 0
 
 
 def rot3(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor) -> torch.Tensor:

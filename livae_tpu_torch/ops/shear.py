@@ -305,14 +305,36 @@ def blocks_per_sm(plan: ShearPlan, dtype: torch.dtype) -> int:
     return out.value
 
 
+def fold_lanes(lanes: int, in_dims, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors of a `torch.func.vmap` rule with their lane axis folded into
+    the batch: [lanes, B, ...] -> [lanes * B, ...], contiguous. A tensor whose
+    in_dim is None (the same for every lane) is expanded to all lanes first."""
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(lanes, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.flatten(0, 1).contiguous())
+    return out
+
+
 class FractionalShiftFunction(torch.autograd.Function):
-    """The shift through the CUDA kernels; the backward is one fused launch."""
+    """The shift through the CUDA kernels; the backward is one fused launch.
+
+    Under `torch.func.vmap` the rule folds the lanes into the batch, so K lanes
+    of [B, H, W] make one launch on [K * B, H, W]. Its gradients come from plain
+    autograd outside the vmap (`loss.backward()`): under `torch.func.grad` the
+    backward would get a functorch-wrapped cotangent, which has no data pointer
+    to hand to the kernel.
+    """
 
     @staticmethod
-    def forward(ctx, x, delta, axis):
+    def forward(x, delta, axis):
+        return _launch_fwd(x, delta, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, delta, axis = inputs
         ctx.axis = axis
         ctx.save_for_backward(x, delta)
-        return _launch_fwd(x, delta, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -321,6 +343,11 @@ class FractionalShiftFunction(torch.autograd.Function):
         # on the data), the dx-free variant skips dx; d delta keeps its bits
         dx, ddelta = _launch_bwd(x, delta, g, ctx.axis, with_dx=ctx.needs_input_grad[0])
         return dx, ddelta.to(delta.dtype), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, delta, axis):
+        x, delta = fold_lanes(info.batch_size, in_dims[:2], x, delta)
+        return FractionalShiftFunction.apply(x, delta, axis).unflatten(0, (info.batch_size, -1)), 0
 
 
 def fractional_shift(x: torch.Tensor, delta: torch.Tensor, axis: int) -> torch.Tensor:

@@ -25,10 +25,12 @@ normalize), never a model: a model and its optimizer are a trial's state.
 Executors: thread (the default when --max-concurrent > 1; trials share the
 card), sequential, or process (--executor process: one spawned process per
 trial slot, each slot pinned by CUDA_VISIBLE_DEVICES, see
-`default_trial_env`). The kernels are built once, before the first trial;
-threads and children only load them. --stacked above 1 (trials trained in one
-vmapped program in the JAX package) is not ported yet: ROADMAP queue 1, item
-14c. Runs on the CUDA device unless --cpu is given.
+`default_trial_env`), or --stacked K: K trials of one architecture trained
+at once in one vmapped program (`make_stacked_trainable`, on
+livae_tpu_torch.sweep.stacked), with every trial's full epoch budget (no
+scheduler) and each lane the same experiment as the sequential trial of its
+id. The kernels are built once, before the first trial; threads and children
+only load them. Runs on the CUDA device unless --cpu is given.
 """
 
 from __future__ import annotations
@@ -48,7 +50,18 @@ from ..data.datasets import AdaptiveLatticeDataset, default_transform
 from ..device import resolve_device
 from ..models.rvae import RVAE
 from ..ops import _build
-from ..sweep import ASHAScheduler, PBTScheduler, choice, get_best_result, loguniform, run_search
+from ..sweep import (
+    ASHAScheduler,
+    PBTScheduler,
+    choice,
+    get_best_result,
+    loguniform,
+    make_stacked_fns,
+    run_search,
+    run_search_stacked,
+    set_stacked_hyperparams,
+)
+from ..sweep.stacked import StackedState
 from ..train.engine import evaluate_fused, make_fused_eval, make_fused_vae_train_step, metrics_to_host
 from ..train.state import make_optimizer
 from ..utils.checkpoint import load_reference_checkpoint, save_reference_checkpoint
@@ -65,6 +78,7 @@ from ._common import (
 
 __all__ = [
     "make_trainable",
+    "make_stacked_trainable",
     "process_trainable",
     "default_trial_env",
     "run_hyperparameter_search",
@@ -224,6 +238,141 @@ def make_trainable(args, images, device):
     return train_rvae_tune
 
 
+def _evaluate_stacked(stacked_eval, state, site_table, val_idx, batch_size, generators, beta,
+                      gamma) -> list[dict[str, float]]:
+    """The stacked counterpart of `evaluate_fused`: every lane's eval over all
+    val sites, the full batches and then the ragged tail as one smaller batch,
+    batches weighing equally; lane k's noise from generators[k]. Returns each
+    lane's {"val_<name>": mean}."""
+    frames_padded, img_idx, coords, _ = site_table
+    val_idx = torch.as_tensor(val_idx, dtype=torch.long, device=frames_padded.device)
+    K, n = len(generators), len(val_idx)
+    bs = min(batch_size, n)
+    n_full = n // bs
+    parts = []
+    if n_full > 0:
+        parts.append(val_idx[: n_full * bs].reshape(n_full, bs))
+    if n_full * bs < n:
+        parts.append(val_idx[n_full * bs :].reshape(1, -1))
+    rows = [metrics_to_host(stacked_eval(state.params, frames_padded, img_idx, coords,
+                                         part.expand(K, *part.shape), generators, beta, gamma))
+            for part in parts]  # {name: [K, S]} per part, one transfer each
+    count = sum(len(next(iter(r.values()))[0]) for r in rows)
+    return [{"val_" + k: sum(float(r[k][lane].sum()) for r in rows) / count for k in rows[0]}
+            for lane in range(K)]
+
+
+def make_stacked_trainable(args, images, device):
+    """The trainable of `run_search_stacked`: trains a group of K configs of one
+    architecture as K lanes of one vmapped program.
+
+    Per epoch it follows `_trial_body` lane by lane: the cosine lr and the beta
+    annealing, generators of (trial id, "train" | "val", epoch), one
+    reference-format checkpoint `trial_<id>.pt` per lane and one report per
+    lane. Lane i starts from the weights of the sequential trial with its id
+    (a generator of (id, "init")), so a stacked sweep is the same experiment as
+    a sequential one, K trials at a time. Each report carries `_trial_body`'s
+    extra fields; steps, train seconds and train patches/s are the whole
+    stack's, as are the launch counts and the peak memory.
+    """
+    dataset_cache: dict[tuple, AdaptiveLatticeDataset] = {}
+    ckpt_dir = Path(args.ray_results_dir) / args.experiment_name / "checkpoints"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    trial_counter = [0]
+
+    def get_dataset(patch_size, padding, normalize):
+        key = (patch_size, padding, normalize)
+        if key not in dataset_cache:
+            dataset_cache[key] = AdaptiveLatticeDataset(
+                images, patch_size=patch_size, padding=padding, transform=default_transform,
+                normalize=normalize, device=device,
+            )
+        return dataset_cache[key]
+
+    def stacked_trainable(configs, report):
+        cfg0, K = configs[0], len(configs)
+        trial_ids = list(range(trial_counter[0], trial_counter[0] + K))
+        trial_counter[0] += K
+        normalize = bool(cfg0.get("normalize", True))
+        patch_size, padding = int(cfg0["patch_size"]), int(cfg0["padding"])
+        latent_dim, epochs = int(cfg0["latent_dim"]), int(cfg0["epochs"])
+        dataset = get_dataset(patch_size, padding, normalize)
+        models = [RVAE(latent_dim=latent_dim, patch_size=patch_size,
+                       compute_dtype="bfloat16" if device.type == "cuda" else None,
+                       device=device, generator=stream_generator(tid, "init", 0, "cpu"))
+                  for tid in trial_ids]
+        stacked_step, stacked_eval = make_stacked_fns(
+            models[0], patch_size=patch_size, padding=padding, cfg=dataset.transform,
+            margin=dataset._margin, grad_max_norm=float(cfg0.get("grad_max_norm") or 20.0),
+            normalize=normalize, device=device,
+        )
+        state = StackedState.create(models)
+        del models
+
+        train_idx, val_idx = split_indices(len(dataset), cfg0["val_split"], seed=0)
+        if len(train_idx) == 0:
+            raise ValueError(
+                f"empty train split ({len(dataset)} sites total); use larger frames or a "
+                "smaller --val-split"
+            )
+        batch_size = min(int(cfg0["batch_size"]), len(train_idx))
+        train_idx_dev = torch.as_tensor(train_idx, dtype=torch.long, device=device)
+        val_bs = min(batch_size, len(val_idx))
+        gammas = [float(c.get("gamma") or 0.0) for c in configs]
+
+        for epoch in range(epochs):
+            anneal = 1.0
+            if cfg0.get("beta_annealing"):
+                anneal = min(1.0, (epoch + 1) / max(cfg0["beta_annealing_epochs"], 1))
+            betas = [c["beta"] * anneal for c in configs]
+            set_stacked_hyperparams(
+                state,
+                [0.5 * c["lr"] * (1.0 + math.cos(math.pi * epoch / max(epochs, 1)))
+                 for c in configs],
+                [c["weight_decay"] for c in configs],
+            )
+            train_gens = [stream_generator(tid, "train", epoch, device) for tid in trial_ids]
+            val_gens = [stream_generator(tid, "val", epoch, device) for tid in trial_ids]
+
+            sync(device)
+            t0 = time.perf_counter()
+            idx_batches = torch.stack([epoch_index_batches(train_idx_dev, batch_size, g)
+                                       for g in train_gens])
+            state, tm = stacked_step(state, *dataset.device_site_table[:3], idx_batches,
+                                     train_gens, betas, gammas)
+            tm = metrics_to_host(tm)  # one transfer ends the epoch
+            train_s = time.perf_counter() - t0
+            vms = _evaluate_stacked(stacked_eval, state, dataset.device_site_table, val_idx,
+                                    val_bs, val_gens, betas, gammas)
+
+            steps = int(idx_batches.shape[1])
+            for i, (config, vm) in enumerate(zip(configs, vms)):
+                val_loss = vm.get("val_loss", float("inf"))
+                ckpt_path = str(ckpt_dir / f"trial_{trial_ids[i]}.pt")
+                save_reference_checkpoint(
+                    ckpt_path, state.lane_state_dict(i), epoch=epoch, best_val=val_loss,
+                    args={k: v for k, v in config.items() if not isinstance(v, (list, dict))},
+                )
+                report(
+                    i, epoch + 1,
+                    loss=val_loss,
+                    val_loss=val_loss,
+                    train_loss=float(tm["loss"][i]),
+                    val_psnr=vm.get("val_psnr", 0.0),
+                    checkpoint=ckpt_path,
+                    steps=steps,
+                    val_batches=-(-len(val_idx) // val_bs),
+                    train_s=train_s,
+                    train_patches_per_s=K * steps * batch_size / train_s,
+                    lanes=K,
+                    max_memory_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                                    if device.type == "cuda" else 0.0),
+                    **kernel_launches(),
+                )
+
+    return stacked_trainable
+
+
 def process_trainable(data_spec, config, report):
     """Module-level (picklable) trial of the spawned process executor.
 
@@ -290,11 +439,6 @@ def run_hyperparameter_search(args) -> dict:
     """Run the sweep; returns {"trials", "best", "seconds", "kernel_build_s",
     "launches", "max_memory_gib"} (launches and memory of this process), which
     it also prints as one `sweep_summary {json}` line."""
-    if args.stacked > 1:
-        raise SystemExit(
-            f"--stacked {args.stacked}: stacked trials (K trials in one vmapped program) are "
-            "not ported yet, ROADMAP queue 1, item 14c; run without --stacked"
-        )
     try:
         import ray  # noqa: F401
 
@@ -358,17 +502,30 @@ def run_hyperparameter_search(args) -> dict:
         trainable = functools.partial(process_trainable, data_spec)
         trial_env = functools.partial(default_trial_env,
                                       force_platform="cpu" if args.cpu else None)
-    else:
+    elif args.stacked <= 1:
         trainable = make_trainable(args, resolve_images(args), device)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    trials = run_search(
-        trainable, param_space, num_samples=args.num_samples, scheduler=scheduler,
-        metric="loss", mode="min", results_dir=results_dir, seed=args.seed,
-        search_alg=args.search_alg, max_concurrent=args.max_concurrent, executor=executor,
-        trial_env=trial_env,
-    )
+    if args.stacked > 1:
+        # K trials in one vmapped program; early-stopping schedulers do not apply
+        if scheduler is not None:
+            print(f"note: --stacked ignores --scheduler {args.scheduler} (lanes share one "
+                  "program; every trial runs its full epoch budget)")
+        if executor is not None:
+            print(f"note: --stacked replaces --executor {executor}")
+        trials = run_search_stacked(
+            make_stacked_trainable(args, resolve_images(args), device), param_space,
+            num_samples=args.num_samples, stack_size=args.stacked, metric="loss", mode="min",
+            results_dir=results_dir, seed=args.seed, search_alg=args.search_alg,
+        )
+    else:
+        trials = run_search(
+            trainable, param_space, num_samples=args.num_samples, scheduler=scheduler,
+            metric="loss", mode="min", results_dir=results_dir, seed=args.seed,
+            search_alg=args.search_alg, max_concurrent=args.max_concurrent, executor=executor,
+            trial_env=trial_env,
+        )
     sync(device)
     summary = {
         "trials": trials, "best": get_best_result(trials, metric="loss", mode="min"),
@@ -460,8 +617,9 @@ def build_argparser() -> argparse.ArgumentParser:
         "--stacked",
         type=int,
         default=0,
-        help="Train K trials in one vmapped program; not ported yet (ROADMAP queue 1, "
-        "item 14c): values above 1 exit",
+        help="Train K trials at once in one vmapped program (per-lane lr/wd/beta/gamma/"
+        "seed; structural params group into separate stacks). Replaces "
+        "--executor/--scheduler; tune K so K x batch-size fits the card's memory",
     )
     parser.add_argument("--cpus-per-trial", type=int, default=8, help=argparse.SUPPRESS)
     parser.add_argument("--gpus-per-trial", type=float, default=0.25, help=argparse.SUPPRESS)

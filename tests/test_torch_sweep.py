@@ -55,11 +55,17 @@ def _both(tmp_path, trainable, **kw):
 
 
 def test_exports_match_jax_without_the_stacked_names():
+    """The port exports what livae_tpu.sweep exports, the five stacked names
+    included, and sweep.search / sweep.stacked have the JAX modules' __all__."""
+    import livae_tpu.sweep.stacked as jst
+    import livae_tpu_torch.sweep.stacked as tst
+
     stacked = {"make_stacked_fns", "run_search_stacked", "set_stacked_hyperparams",
                "stack_trees", "unstack_tree"}
-    jax_names = {n for n in dir(jsw) if not n.startswith("_")} - stacked - {"search", "stacked"}
-    assert set(tsw.__all__) == jax_names
+    jax_names = {n for n in dir(jsw) if not n.startswith("_")} - {"search", "stacked"}
+    assert stacked <= jax_names and set(tsw.__all__) == jax_names
     assert set(tss.__all__) == set(jss.__all__)
+    assert tst.__all__ == jst.__all__ and tst.STRUCTURAL_KEYS == jst.STRUCTURAL_KEYS
 
 
 @pytest.mark.parametrize("search_alg", ["random", "tpe", "hyperopt"])

@@ -3,8 +3,11 @@ frame, patch 32, padding 8, batch 64, latent 8, 2 epochs, f32):
 train_rvae_raytune (thread and process executors, ASHA, the PBT exploit of
 `_trial_body`, --stacked), train_rvae_with_best, analyze_raytune_results,
 compare_training_methods and test_raytune_deps, against the JAX scripts where
-they write something comparable."""
+they write something comparable; --stacked against a sequential run of the
+same trials."""
 
+import contextlib
+import io
 import json
 import sys
 from pathlib import Path
@@ -164,11 +167,74 @@ def test_pbt_exploit_takes_the_donors_weights_where_they_fit(tmp_path, capsys, d
         assert all(torch.equal(v, trained[k]) for k, v in model.state_dict().items())
 
 
-def test_stacked_exits_naming_item_14c(tmp_path):
-    args = train_rvae_raytune.build_argparser().parse_args(_argv(tmp_path, "s", "--stacked", "2"))
-    with pytest.raises(SystemExit, match="item 14c"):
-        train_rvae_raytune.run_hyperparameter_search(args)
-    assert not (tmp_path / "ray_results").exists()
+@pytest.fixture(scope="module")
+def stacked_and_sequential(tmp_path_factory):
+    """The same two trials as one stack of 2 and one after another (no
+    scheduler, so both run every epoch)."""
+    torch.set_num_threads(1)
+    root = tmp_path_factory.mktemp("stacked")
+    runs = {}
+    for name, flags in (("stacked", ["--stacked", "2"]),
+                        ("sequential", ["--max-concurrent", "1", "--scheduler", "none"])):
+        args = train_rvae_raytune.build_argparser().parse_args(
+            _argv(root, name, "--num-samples", "2", "--val-split", "0.2", *flags))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = train_rvae_raytune.run_hyperparameter_search(args)
+        runs[name] = (out, buf.getvalue(),
+                      json.loads((root / "ray_results" / name / "results.json").read_text()))
+    return root, runs
+
+
+def test_stacked_trains_k_trials_in_one_program(stacked_and_sequential):
+    """--stacked 2 --num-samples 2 writes results.json and one checkpoint per
+    trial, prints the scheduler's note, and its histories equal the
+    sequential run's: the epoch metrics at rtol 1e-4 (under vmap the
+    convolutions are grouped, their sums run in another order), the same
+    steps and val batches (the val set of 118 sites at batch 64: a full batch
+    and a ragged tail)."""
+    root, runs = stacked_and_sequential
+    (out, printed, stacked), (_, _, sequential) = runs["stacked"], runs["sequential"]
+    assert "note: --stacked ignores --scheduler asha" in printed
+    assert "(stacked x2)" in printed
+    assert [t["trial_id"] for t in stacked] == [0, 1]
+    for s, q in zip(stacked, sequential):
+        assert s["status"] == q["status"] == "done" and s["config"] == q["config"]
+        assert s["epochs"] == q["epochs"] == 2
+        assert s["checkpoint"].endswith(f"trial_{s['trial_id']}.pt")
+        state, payload = load_reference_checkpoint(s["checkpoint"])
+        RVAE(8, 1, 32, device="cpu").load_state_dict(state, strict=True)
+        assert payload["epoch"] == 1 and payload["args"] == q["config"]
+        for hs, hq in zip(s["history"], q["history"]):
+            assert hs["lanes"] == 2 and hs["val_batches"] == hq["val_batches"] == 2
+            assert hs["epoch"] == hq["epoch"] and hs["steps"] == hq["steps"]
+            for k in ("loss", "val_loss", "train_loss", "val_psnr"):
+                np.testing.assert_allclose(hs[k], hq[k], rtol=1e-4, err_msg=k)
+            assert hs["rot3_fwd"] == 0 and hs["train_patches_per_s"] > 0
+    best = json.loads((root / "stacked" / "best_config.json").read_text())
+    assert best == out["best"].config
+
+
+def test_stacked_prints_the_executor_note_and_splits_structural_mixes(tmp_path, capsys):
+    """Two latent widths in one round land in two stacks, each trained whole;
+    --executor is replaced, with the JAX script's note."""
+    args = train_rvae_raytune.build_argparser().parse_args(
+        _argv(tmp_path, "mix", "--latent-dims", "4", "8", "--num-samples", "4", "--stacked", "4",
+              "--epochs", "1", "--executor", "thread", "--scheduler", "none"))
+    out = train_rvae_raytune.run_hyperparameter_search(args)
+    printed = capsys.readouterr().out
+    assert "note: --stacked replaces --executor thread" in printed
+    assert "note: --stacked ignores" not in printed
+    by_width = {}
+    for t in out["trials"]:
+        by_width.setdefault(t.config["latent_dim"], []).append(t)
+    assert sorted(by_width) == [4, 8]
+    for width, trials in by_width.items():
+        for t in trials:
+            assert t.status == "done" and t.history[-1]["lanes"] == len(trials)
+            state, _ = load_reference_checkpoint(t.checkpoint)
+            RVAE(width, 1, 32, device="cpu").load_state_dict(state, strict=True)
+    assert printed.count("(stacked x") == 4
 
 
 def test_with_best_consumes_vacancy_sweep_config(monkeypatch):
