@@ -107,6 +107,18 @@ Run from the repository root:  python3 chip_smoke.py
    of BASELINE.json), `accuracy_program` with one config for 2 epochs on one
    training frame at the CLI's widths (its sklearn metrics skipped, and said
    so, where sklearn is not importable); each one's rot3 launches.
+15. exports: the JAX package's 40 names imported from `livae_tpu_torch`, an
+   RVAE built and run on the card through them (2 rot3 forwards).
+16. parallel: world size 1 under NCCL (3 fused rVAE steps at batch 512, bf16,
+   through DistributedDataParallel, and one sharded eval batch) against the
+   same without a mesh: weights equal, metrics within 1e-6; then 2 gloo ranks
+   spawned on the one card (NCCL refuses two ranks on one device), CUDA
+   tensors, f32, 2 steps, diversity off (gloo gathers no CUDA tensor),
+   against one process: step means within 1e-5, weights within 1e-5 but for
+   under 0.1 % (Adam's near-zero-gradient flips); rot3 3 / 2 per step.
+17. profile: `python -m livae_tpu_torch.profile_step --path paired vae patch
+   encode stacked --steps 2` as a process (its report printed), then
+   `profile_components --reps 3` in this process.
 Around each driven path the launch counters are zeroed just before and read
 just after (a sweep's processes report their own). A `phase_seconds` line
 gives each phase's wall-clock seconds. The build step prints each kernel's registers and spills (ptxas);
@@ -146,6 +158,7 @@ from livae_tpu_torch.data.datasets import (
     PatchDataset,
     default_transform,
 )
+from livae_tpu_torch.data.pipeline import PairedDraws, sample_paired_draws
 from livae_tpu_torch.data.synthetic import synthetic_mos2_frame
 from livae_tpu_torch.models.rvae import RVAE
 from livae_tpu_torch.models.vae import VAE
@@ -1758,6 +1771,210 @@ def compare_phase(tmp: Path):
     return result
 
 
+PARALLEL_STEPS, PARALLEL_GLOO_STEPS = 3, 2
+
+
+def _on(device, draws):
+    return [PairedDraws(**{k: v.to(device) for k, v in vars(d).items()}) for d in draws]
+
+
+def _dp_steps(mesh, device, state, table, idx, draws, eps, compute_dtype=None):
+    """Fused rVAE train steps of a model loaded from `state` on `device`, as
+    one rank of `mesh` (None: this process alone), with the global batches'
+    draws and noise given. Returns the step means, the weights after (on the
+    host) and the kernels' launches."""
+    frames_padded, img_idx, coords, margin = table
+    model = RVAE(LATENT, 1, PATCH, compute_dtype, device=device)
+    model.load_state_dict(state)
+    opt = make_optimizer(model.parameters(), 1e-3, optimizer="adamw", weight_decay=1e-5)
+    step = make_fused_rvae_train_step(model, opt, patch_size=PATCH, padding=PADDING,
+                                      cfg=default_transform, margin=margin, canonical_weight=0.2,
+                                      grad_max_norm=20.0, device=device, mesh=mesh)
+    zero_counts()
+    m = metrics_to_host(step(frames_padded.to(device), img_idx.to(device), coords.to(device),
+                             idx.to(device), None, 10.0, 10.0, draws=_on(device, draws),
+                             eps=[e.to(device) for e in eps]))
+    torch.cuda.synchronize(device)
+    return {"metrics": m, "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "launches": counts()}
+
+
+def _gloo_rank(mesh, device, *args):
+    """A rank of the 2-rank gloo run: CUDA tensors on the one card, f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return _dp_steps(mesh, device, *args)
+
+
+def _weights_diff(a, b) -> tuple[float, float]:
+    """(max |a - b| over every weight, share of elements beyond 1e-5)."""
+    d = torch.cat([(v.float() - b[k].float()).abs().reshape(-1) for k, v in a.items()])
+    return float(d.max()), float((d > 1e-5).float().mean())
+
+
+def _metrics_diff(a, b) -> float:
+    return max(float(np.max(np.abs(a[k] - b[k]) / np.maximum(np.abs(b[k]), 1.0))) for k in b)
+
+
+def parallel_phase(ds):
+    """Data parallelism (livae_tpu_torch.parallel) on the one card.
+
+    1. World size 1 under NCCL, in this process: 3 fused rVAE steps at the
+       main path's widths (batch 512, bf16) through DistributedDataParallel
+       and the NCCL all-reduce, then one sharded eval batch (its all-gather),
+       against the same steps and eval without a mesh from the same weights
+       and draws: the weights equal, the metrics within 1e-6.
+    2. Two gloo ranks, spawned, each with CUDA tensors on the card (NCCL
+       refuses two ranks on one device): 2 steps at batch 512 (256 rows per
+       rank) in f32 with TF32 off, against one process: the step means within
+       1e-5, the weights within 1e-5 but for Adam's near-zero-gradient flips
+       (fewer than 0.1 %, within 2 lr per step). Gloo cannot all-gather CUDA
+       tensors, so the diversity term stays off here; the CPU tests hold it.
+    """
+    import torch.distributed as dist
+
+    from livae_tpu_torch.parallel import init_mesh, spawn
+
+    fp, img_idx, coords, margin = ds.device_site_table
+    n = len(ds)
+    g = torch.Generator().manual_seed(31)
+    start = RVAE(LATENT, 1, PATCH, device="cpu", generator=torch.Generator().manual_seed(30))
+    state = {k: v.clone() for k, v in start.state_dict().items()}
+
+    def batches(steps):
+        idx = torch.randint(0, n, (steps, BATCH), generator=g)
+        draws = [sample_paired_draws(BATCH, default_transform, g, "cpu") for _ in range(steps)]
+        return idx, draws, [torch.randn((BATCH, LATENT), generator=g) for _ in range(steps)]
+
+    table = (fp, img_idx, coords, margin)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    idx, draws, eps = batches(PARALLEL_STEPS)
+    vidx = torch.randint(0, n, (1, BATCH), generator=g)
+    vdraws = [sample_paired_draws(BATCH, default_transform, g, "cpu")]
+    veps = [torch.randn((BATCH, LATENT), generator=g)]
+
+    def eval_batch(mesh):
+        model = RVAE(LATENT, 1, PATCH, "bfloat16", device="cuda")
+        model.load_state_dict(state)
+        ev = make_fused_rvae_eval(model, patch_size=PATCH, padding=PADDING,
+                                  cfg=default_transform, margin=margin, canonical_weight=0.2,
+                                  device="cuda", mesh=mesh)
+        return metrics_to_host(ev(fp, img_idx, coords, vidx.cuda(), None, 10.0, 10.0,
+                                  draws=_on("cuda", vdraws), eps=[e.cuda() for e in veps]))
+
+    plain = _dp_steps(None, torch.device("cuda"), state, table, idx, draws, eps, "bfloat16")
+    plain_eval = eval_batch(None)
+    with tempfile.TemporaryDirectory(prefix="livae_ranks_") as store:
+        mesh = init_mesh(0, 1, "nccl", store)
+        try:
+            t0 = time.perf_counter()
+            nccl = _dp_steps(mesh, torch.device("cuda"), state, table, idx, draws, eps,
+                             "bfloat16")
+            nccl_s = time.perf_counter() - t0
+            nccl_eval = eval_batch(mesh)
+        finally:
+            dist.destroy_process_group()
+    n_max, _ = _weights_diff(nccl["state"], plain["state"])
+    n_diff = max(_metrics_diff(nccl["metrics"], plain["metrics"]),
+                 _metrics_diff(nccl_eval, plain_eval))
+    print(f"parallel: NCCL world 1, {PARALLEL_STEPS} steps bf16 batch {BATCH}: weights max diff "
+          f"{n_max:.3e}, metrics max rel diff {n_diff:.3e} (tol 1e-6), launches "
+          f"{nccl['launches']}, {nccl_s:.2f} s")
+    check(n_max == 0.0 and n_diff <= 1e-6, "NCCL world-1 steps differ from one process")
+    want = {**NO_LAUNCH, "rot3_fwd": 3 * PARALLEL_STEPS, "rot3_bwd": 2 * PARALLEL_STEPS}
+    check(nccl["launches"] == want, f"NCCL run launches {nccl['launches']}")
+
+    idx, draws, eps = batches(PARALLEL_GLOO_STEPS)
+    host_table = (fp.cpu(), img_idx.cpu(), coords.cpu(), margin)
+    torch.backends.cudnn.allow_tf32 = False
+    one = _dp_steps(None, torch.device("cuda"), state, host_table, idx, draws, eps)
+    t0 = time.perf_counter()
+    two = spawn(_gloo_rank, 2, state, host_table, idx, draws, eps, device_type="cuda",
+                backend="gloo", root=tempfile.gettempdir())
+    gloo_s = time.perf_counter() - t0
+    w_max, w_share = _weights_diff(two["state"], one["state"])
+    m_diff = _metrics_diff(two["metrics"], one["metrics"])
+    print(f"parallel: 2 gloo ranks on the card, {PARALLEL_GLOO_STEPS} steps f32 batch {BATCH}: "
+          f"metrics max rel diff {m_diff:.3e} (tol 1e-5), weights max diff {w_max:.3e}, "
+          f"share beyond 1e-5 {w_share:.2e}, rank 0 launches {two['launches']}, {gloo_s:.1f} s")
+    check(m_diff <= 1e-5 and w_share < 1e-3 and w_max <= 2 * 1e-3 * PARALLEL_GLOO_STEPS,
+          "2 gloo ranks differ from one process")
+    want = {**NO_LAUNCH, "rot3_fwd": 3 * PARALLEL_GLOO_STEPS, "rot3_bwd": 2 * PARALLEL_GLOO_STEPS}
+    check(two["launches"] == want, f"gloo rank 0 launches {two['launches']}")
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 paths' setting, as the main path left it
+    return {"nccl_world1": {"steps": PARALLEL_STEPS, "weights_max_diff": n_max,
+                            "metrics_max_rel_diff": n_diff, "seconds": nccl_s,
+                            "launches": nccl["launches"]},
+            "gloo_2_ranks": {"steps": PARALLEL_GLOO_STEPS, "metrics_max_rel_diff": m_diff,
+                             "weights_max_diff": w_max, "weights_share_beyond_1e-5": w_share,
+                             "seconds": gloo_s, "launches": two["launches"]},
+            "launches": nccl["launches"], "gloo_launches": two["launches"]}
+
+
+def profile_phase():
+    """The profilers: `profile_step --path paired vae patch encode stacked
+    --steps 2` as a user runs it, in a fresh process (each path's first
+    calls, the main path's in the fresh process, then each phase's top 8
+    kernels), and `profile_components --reps 3` (every stage's patches/sec,
+    each stage warmed up first) in this process. Both print their reports."""
+    from livae_tpu_torch.scripts import profile_components
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "livae_tpu_torch.profile_step", "--path",
+                           "paired", "vae", "patch", "encode", "stacked", "--steps", "2",
+                           "--top", "8"], capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    step_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"profile_step exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    heads = [ln for ln in lines if ln.startswith("== ")]
+    check(sum("first calls" in ln for ln in heads) == 5 and len(heads) == 5 + 8,
+          f"profile_step printed {heads}")
+    for ln in lines[lines.index(heads[0]):]:  # the report, each phase's kernels
+        print(f"profile: {ln.rstrip()}")
+
+    t0 = time.perf_counter()
+    blob = profile_components.main(["--reps", "3"])
+    components_s = time.perf_counter() - t0
+    check(len(blob["patches_per_sec"]) == 14
+          and all(v > 0 for v in blob["patches_per_sec"].values()), f"profile_components {blob}")
+    print("profile: profile_components us/patch " + json.dumps(blob["us_per_patch"]))
+    return {"profile_step": {"seconds": step_s, "headers": heads},
+            "profile_components": {"seconds": components_s, **blob}}
+
+
+def exports_phase():
+    """The package's import surface on the card: the JAX package's 40 names
+    from `livae_tpu_torch`, a model built and run through them."""
+    import livae_tpu_torch
+    from livae_tpu_torch import RVAE as TopRVAE
+    from livae_tpu_torch import compute_psnr, rvae_loss
+    from livae_tpu_torch.parallel import DATA_AXIS, spawn  # noqa: F401
+    from livae_tpu_torch.train import make_fused_rvae_train_step as top_step
+
+    check(len(livae_tpu_torch.__all__) == 41 and livae_tpu_torch.__version__ == "0.1.0"
+          and all(getattr(livae_tpu_torch, n, None) is not None for n in livae_tpu_torch.__all__),
+          "the package's names")
+    check(TopRVAE is RVAE and top_step is make_fused_rvae_train_step, "re-exported objects")
+    model = TopRVAE(LATENT, 1, PATCH, "bfloat16", device="cuda",
+                    generator=torch.Generator().manual_seed(5))
+    x = torch.rand((8, 1, PATCH, PATCH), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(6))
+    zero_counts()
+    with torch.no_grad():
+        rotated_recon, _, theta, mu, logvar = model(x, generator=torch.Generator(
+            device="cuda").manual_seed(7))
+        total = rvae_loss(rotated_recon, x, mu, logvar)[0]
+    got = counts()
+    psnr = compute_psnr(rotated_recon, x)
+    check(bool(torch.isfinite(total)) and math.isfinite(psnr) and got["rot3_fwd"] == 2,
+          f"exports: loss {float(total)}, psnr {psnr}, launches {got}")
+    print(f"exports: {len(livae_tpu_torch.__all__)} names; RVAE forward on the card, loss "
+          f"{float(total):.4f}, psnr {psnr:.2f} dB, launches {got}")
+    return {"names": len(livae_tpu_torch.__all__), "launches": got}
+
+
 def port_bench_phase():
     """python -m livae_tpu_torch.bench in a process of its own: exit code 0 and
     one JSON line on stdout."""
@@ -1818,6 +2035,10 @@ def main() -> int:
     print("device_peaks " + json.dumps({"card": smi, **peaks}))
     host_loop = timed("host_loop", host_loop_phase, ds)
     print("host_loop " + json.dumps({"card": smi, **host_loop}))
+    exports = timed("exports", exports_phase)
+    print("exports " + json.dumps({"card": smi, **exports}))
+    parallel = timed("parallel", parallel_phase, ds)
+    print("parallel " + json.dumps({"card": smi, **parallel}))
     rot_launches = timed("rotation", rotation_path_phase)
     exact = timed("exact_resample", exact_train_phase, ds)
     print("exact_resample_path " + json.dumps({"card": smi, **exact}))
@@ -1845,6 +2066,8 @@ def main() -> int:
     print("patch_dataset " + json.dumps({"card": smi, **patches}))
     timed("vae_agreement", vae_agreement_phase)
     print("bench " + timed("bench", port_bench_phase))
+    profiles = timed("profile", profile_phase)
+    print("profile " + json.dumps({"card": smi, **profiles}))
     print("phase_seconds " + json.dumps({"card": smi, **seconds,
                                          "total": time.perf_counter() - t_start}))
     # kernel C runs on the rotation paths of this slice, not on the paired main path
@@ -1876,7 +2099,9 @@ def main() -> int:
                "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"],
                "analysis": analysis["launches"], "rotation_invariance": rot_inv["launches"],
                "pretrain_stn": pretrain["launches"], "device_peaks": peaks["launches"],
-               "host_loop": host_loop["launches"],
+               "host_loop": host_loop["launches"], "exports": exports["launches"],
+               "parallel_nccl": parallel["launches"],
+               "parallel_gloo_rank0": parallel["gloo_launches"],
                **{f"sweep_{name}": run["launches"] for name, run in sweep.items()},
                "stacked": stacked["launches"],
                **{name: run["launches"] for name, run in compare.items()}}

@@ -14,9 +14,9 @@ plain `load_state_dict`:
 The JAX package computes the STN blocks and decoder stages with exact TPU
 rewrites (ops/upconv.py); here they are the plain chains, convolutions on
 cuDNN. The decoder's 2x bilinear upsample and reflection pad are written as
-slices and two-tap sums (`_upsample2x`, `_reflect_pad1`): PyTorch's own
-NCHW kernels for them took most of a batch-512 train step on the H100
-(PERF.md).
+slices and two-tap sums (`ops.resample.upsample2x_bilinear`, `_reflect_pad1`):
+PyTorch's own NCHW kernels for them took most of a batch-512 train step on
+the H100 (PERF.md).
 
 Mixed precision follows the JAX policy (`compute_dtype`): convolutions cast
 input, weight and bias to the compute dtype; the dense layers and the
@@ -43,6 +43,7 @@ from ..ops.resample import (
     rotate_image,
     rotate_image_fast,
     rotation_matrix,
+    upsample2x_bilinear,
 )
 from .vae import _conv, _conv_trunk, _dtype, init_torch_default, reparameterize
 
@@ -50,17 +51,8 @@ __all__ = ["RotationSTN", "Encoder", "Decoder", "RVAE", "init_torch_default"]
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """nn.Upsample(scale_factor=2, mode="bilinear", align_corners=False) of
-    [B, C, H, W]: per axis out[2i] = 0.25 x[i-1] + 0.75 x[i] and
-    out[2i+1] = 0.75 x[i] + 0.25 x[i+1], with the edges clamped."""
-    for dim in (2, 3):
-        n = x.shape[dim]
-        prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
-        nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
-        even = 0.25 * prev + 0.75 * x
-        odd = 0.75 * x + 0.25 * nxt
-        x = torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
-    return x
+    """The decoder's 2x bilinear upsample (`ops.resample.upsample2x_bilinear`)."""
+    return upsample2x_bilinear(x)
 
 
 def _reflect_pad1(x: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,6 @@
-"""Tensor ops of the port: the rot3 kernels, resampling and host preprocessing."""
+"""Tensor ops of the port: the rot3 and shear kernels, resampling, FFT
+filters, peaks and the lattice."""
+
+from . import fft, lattice, peaks, resample
+
+__all__ = ["fft", "lattice", "peaks", "resample"]

@@ -6,8 +6,9 @@ C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
 
-The libraries go into `livae_tpu_torch/_build/` (listed in `.gitignore`),
-named by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+The libraries go into `livae_tpu_torch/_build/` (listed in `.gitignore`), or
+into the directory `LIVAE_TORCH_BUILD_DIR` names (for an install the process
+cannot write into), named by a hash of the source, the shared headers (`csrc/*.cuh`) and the
 flags, so an edited source rebuilds and an unchanged one is reused. Nothing
 is built when a module is imported: the first launch builds, or a caller
 builds every kernel up front with `build_all()` (one nvcc process per
@@ -28,7 +29,8 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "SOURCES", "BUILD_LOG", "build_all", "is_built", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = Path(os.environ.get("LIVAE_TORCH_BUILD_DIR")
+                 or Path(__file__).resolve().parent.parent / "_build")
 SOURCES = {"rot3": _CSRC / "rot3.cu", "shear": _CSRC / "shear.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -35,6 +35,7 @@ __all__ = [
     "aligned_margin",
     "rotate_image_fast",
     "center_crop",
+    "upsample2x_bilinear",
 ]
 
 
@@ -235,3 +236,19 @@ def center_crop(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     top = int(round((H - h) / 2.0))
     left = int(round((W - w) / 2.0))
     return img[..., top : top + h, left : left + w]
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of [B, C, H, W], align_corners=False:
+    `nn.Upsample(scale_factor=2, mode="bilinear")`. Per axis out[2i] =
+    0.25 x[i-1] + 0.75 x[i] and out[2i+1] = 0.75 x[i] + 0.25 x[i+1], with the
+    edges clamped, written as slices and two-tap sums (PyTorch's own NCHW
+    kernel for it took most of a batch-512 train step on the H100, PERF.md)."""
+    for dim in (2, 3):
+        n = x.shape[dim]
+        prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+        even = 0.25 * prev + 0.75 * x
+        odd = 0.75 * x + 0.25 * nxt
+        x = torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+    return x

@@ -169,7 +169,7 @@ def _launch_fwd(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor,
     d_col = d_col.float().contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.livae_rot3_fwd(
             x.data_ptr(), d_row.data_ptr(), d_col.data_ptr(), out.data_ptr(), B, P,
             plan.cluster, plan.rows, plan.smem, int(x.dtype == torch.bfloat16), stream,
@@ -195,7 +195,7 @@ def _launch_bwd(x, d_row, d_col, g, with_dx: bool = True, cluster: int | None = 
     ddr = torch.empty((B, P), dtype=torch.float32, device=x.device)
     ddc = torch.empty((B, P), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.livae_rot3_bwd(
             x.data_ptr(), d_row.data_ptr(), d_col.data_ptr(), g.data_ptr(),
             dx.data_ptr() if with_dx else None, ddr.data_ptr(), ddc.data_ptr(),

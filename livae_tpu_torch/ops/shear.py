@@ -259,7 +259,7 @@ def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int,
     delta = delta.float().contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.livae_shear_fwd(x.data_ptr(), delta.data_ptr(), out.data_ptr(), B, H, W,
                                   axis, int(x.dtype == torch.bfloat16), plan.tile, plan.smem,
                                   stream)
@@ -283,7 +283,7 @@ def _launch_bwd(x: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, axis: int
     dx = torch.empty_like(x) if with_dx else None
     ddelta = torch.empty_like(delta)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.livae_shear_bwd(x.data_ptr(), delta.data_ptr(), g.data_ptr(),
                                   dx.data_ptr() if with_dx else None, ddelta.data_ptr(),
                                   B, H, W, axis, int(x.dtype == torch.bfloat16), plan.tile,

@@ -2,7 +2,8 @@
 
 Data resolution: `--data` .h5 paths, else data/*.h5, else `--synthetic N`
 ground-truthed synthetic MoS2 frames. Device flags: the entry points run on
-the CUDA device unless `--cpu` is passed. Randomness: every epoch's generator
+the CUDA device unless `--cpu` is passed; the trainers' `--num-devices N`
+runs them on N spawned ranks (`run_data_parallel`). Randomness: every epoch's generator
 is seeded from (seed, stream, epoch), so a resumed run draws what an
 uninterrupted one draws. Kernels: every entry point builds them with
 `prebuild_kernels` before its first timed step.
@@ -24,6 +25,7 @@ from ..data.h5 import load_image_from_h5
 from ..data.synthetic import synthetic_mos2_frame
 from ..device import resolve_device
 from ..ops import rot3, shear
+from ..parallel.mesh import setup_mesh_from_flags, spawn
 
 
 def resolve_images(args) -> list[np.ndarray]:
@@ -85,18 +87,30 @@ def add_device_flags(parser, mp_help: str) -> None:
 
 
 def resolve_run_device(args) -> torch.device:
-    """The run's device: CUDA, or the CPU with --cpu (the only way onto it).
-    More than one device is not ported: anything but one exits."""
-    device = resolve_device("cpu" if getattr(args, "cpu", False) else None)
-    n_local = torch.cuda.device_count() if device.type == "cuda" else 1
-    num = str(getattr(args, "num_devices", "1"))
-    n = n_local if num == "auto" else int(num)
-    if n != 1 or int(getattr(args, "model_parallel", 1)) != 1:
-        raise SystemExit(
-            f"--num-devices {num} --model-parallel {getattr(args, 'model_parallel', 1)}: this "
-            "build trains on one device; data parallelism is ROADMAP queue 1, item 15"
-        )
-    return device
+    """The run's device: CUDA, or the CPU with --cpu (the only way onto it)."""
+    return resolve_device("cpu" if getattr(args, "cpu", False) else None)
+
+
+def _rank_run(mesh, device, train, args) -> dict:
+    out = train(mesh, device, args)
+    return {k: v for k, v in out.items() if k not in ("optimizer", "scheduler")}
+
+
+def run_data_parallel(train, args, device: torch.device) -> dict | None:
+    """With --num-devices N > 1: build the kernels once, run train(mesh,
+    device, args) on N spawned ranks (rendezvous in the checkpoint's
+    directory) and return rank 0's result, less its optimizer and schedule
+    (they do not pickle). None for one device: the caller trains in this
+    process. Exits on flags the mesh cannot take (`setup_mesh_from_flags`)."""
+    n = setup_mesh_from_flags(getattr(args, "num_devices", "1"),
+                              getattr(args, "model_parallel", 1), args.batch_size, device.type)
+    if n == 1:
+        return None
+    build_s = prebuild_kernels(device)
+    result = spawn(_rank_run, n, train, args, device_type=device.type,
+                   root=Path(args.checkpoint).parent)
+    result["kernel_build_s"] = build_s
+    return result
 
 
 def note_ignored_flags(args) -> None:

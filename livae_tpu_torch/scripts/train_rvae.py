@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Train the rotationally-invariant VAE (rVAE) on atom patches, on one GPU.
+"""Train the rotationally-invariant VAE (rVAE) on atom patches, on one GPU or
+data-parallel over several (--num-devices).
 
 Run as  python -m livae_tpu_torch.scripts.train_rvae --synthetic 2 ...
 
@@ -11,7 +12,11 @@ _final checkpoints in the reference's torch.save layout, --resume.
 
 On the card the convolutions run in bfloat16 (--no-amp: float32). --cpu runs
 the plain PyTorch versions on the CPU, and is the only way onto it.
---num-workers, --prefetch-factor and --compile are accepted and ignored.
+--num-devices N (or "auto") trains on N ranks, one process per device (NCCL on
+the cards, gloo with --cpu), the global batch shared out among them step for
+step as on one device (parallel/mesh.py); rank 0 alone writes checkpoints,
+logs and the results. --num-workers, --prefetch-factor and --compile are
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..train.engine import (
     metrics_to_host,
 )
 from ..train.state import beta_at_epoch, cosine_annealing, make_optimizer, make_schedule
+from ..parallel.mesh import DataMesh
 from ..utils.checkpoint import clean_state_dict, load_checkpoint, save_reference_checkpoint
 from ..utils.resume import latest_step, restore_train_state, save_train_state
 from ._common import (
@@ -48,6 +54,7 @@ from ._common import (
     profile_epoch,
     resolve_images,
     resolve_run_device,
+    run_data_parallel,
     split_indices,
     state_digest,
     stream_generator,
@@ -56,7 +63,15 @@ from ._common import (
 
 
 def run_training(args) -> dict:
+    """Train as the flags say; with --num-devices N > 1 on N spawned ranks,
+    returning rank 0's result."""
     device = resolve_run_device(args)
+    return run_data_parallel(_train, args, device) or _train(None, device, args)
+
+
+def _train(mesh: DataMesh | None, device, args) -> dict:
+    lead = mesh is None or mesh.rank == 0  # the rank that writes
+    n_ranks = 1 if mesh is None else mesh.size
     note_ignored_flags(args)
     kernel_build_s = prebuild_kernels(device)
     images = resolve_images(args)
@@ -117,14 +132,17 @@ def run_training(args) -> dict:
     train_step = make_fused_rvae_train_step(
         model, optimizer, scheduler=scheduler,
         grad_max_norm=args.grad_max_norm if args.grad_max_norm is not None else 20.0,
-        **step_kwargs,
+        mesh=mesh, **step_kwargs,
     )
-    fused_eval = make_fused_rvae_eval(model, **step_kwargs)
+    # the ragged val tail runs whole on every rank, as the JAX trainer's tail_eval
+    tail_eval = make_fused_rvae_eval(model, **step_kwargs)
+    fused_eval = tail_eval if mesh is None else make_fused_rvae_eval(
+        model, mesh=mesh, **step_kwargs)
     frames_padded, img_idx_dev, coords_dev, _ = dataset.device_site_table
     train_idx_dev = torch.as_tensor(train_idx, dtype=torch.long, device=device)
 
     writer = None
-    if not args.no_tensorboard:
+    if lead and not args.no_tensorboard:
         from tensorboardX import SummaryWriter
 
         log_dir = Path(args.log_dir) / datetime.now().strftime("%Y%m%d-%H%M%S")
@@ -177,7 +195,8 @@ def run_training(args) -> dict:
         val_gen = stream_generator(args.seed, "val", epoch, device)
         launches0 = kernel_launches()
 
-        with profile_epoch(args.profile and epoch == start_epoch + 1, args.log_dir, device):
+        with profile_epoch(lead and args.profile and epoch == start_epoch + 1, args.log_dir,
+                           device):
             epoch_logger = MetricLogger()
             sync(device)
             t0 = time.time()
@@ -192,9 +211,11 @@ def run_training(args) -> dict:
             total_patches += steps_per_epoch * args.batch_size
 
             val_bs = min(args.batch_size, len(val_idx))
+            val_bs -= val_bs % n_ranks  # the sharded eval's batch
             val_metrics = evaluate_fused(
-                fused_eval, dataset.device_site_table, val_idx, val_bs, val_gen,
-                epoch_logger, beta=beta, gamma=args.gamma,
+                fused_eval if val_bs else tail_eval, dataset.device_site_table, val_idx,
+                val_bs or len(val_idx), val_gen, epoch_logger, beta=beta, gamma=args.gamma,
+                tail_eval=tail_eval,
             )
             eval_time = time.time() - t0 - train_time
 
@@ -242,7 +263,7 @@ def run_training(args) -> dict:
                     canonical=canonical, canonical_input=canonical_input,
                 )
 
-        if args.resume or args.checkpoint_every:
+        if lead and (args.resume or args.checkpoint_every):
             if args.checkpoint_every == 0 or (epoch + 1) % max(args.checkpoint_every, 1) == 0:
                 save_train_state(
                     resume_dir, epoch,
@@ -254,11 +275,12 @@ def run_training(args) -> dict:
         val_loss = val_metrics.get("val_loss", float("inf"))
         if val_loss < best_val:
             best_val = val_loss
-            save_reference_checkpoint(
-                args.checkpoint, model.state_dict(), epoch=epoch, best_val=best_val,
-                args=ckpt_args,
-            )
-            print(f"  -> saved best checkpoint ({args.checkpoint})")
+            if lead:
+                save_reference_checkpoint(
+                    args.checkpoint, model.state_dict(), epoch=epoch, best_val=best_val,
+                    args=ckpt_args,
+                )
+                print(f"  -> saved best checkpoint ({args.checkpoint})")
 
         if args.stop_after_epochs and (epoch + 1 - start_epoch) >= args.stop_after_epochs:
             print(f"Stopping after {args.stop_after_epochs} epochs this run "
@@ -267,10 +289,11 @@ def run_training(args) -> dict:
 
     # failsafe final checkpoint
     final_path = str(Path(args.checkpoint).with_suffix("")) + "_final.pt"
-    save_reference_checkpoint(
-        final_path, model.state_dict(), epoch=args.epochs - 1, best_val=best_val,
-        args=ckpt_args,
-    )
+    if lead:
+        save_reference_checkpoint(
+            final_path, model.state_dict(), epoch=args.epochs - 1, best_val=best_val,
+            args=ckpt_args,
+        )
     wall = time.time() - t_start
     print(
         f"Done in {wall:.0f}s | best val {best_val:.4f} | "
@@ -322,7 +345,7 @@ def build_argparser() -> argparse.ArgumentParser:
     add_device_flags(
         parser,
         "Tensor-parallel ways for the large dense layers; only 1 is supported "
-        "(data parallelism is still to be ported)",
+        "(tensor parallelism is ROADMAP item 21)",
     )
     parser.add_argument("--log-dir", type=str, default="runs/rvae")
     parser.add_argument("--no-tensorboard", action="store_true")

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Train the plain VAE baseline on atom patches, on one GPU.
+"""Train the plain VAE baseline on atom patches, on one GPU or data-parallel
+over several (--num-devices, as in train_rvae).
 
 Run as  python -m livae_tpu_torch.scripts.train_vae --synthetic 2 ...
 
@@ -31,6 +32,7 @@ from ..train.engine import (
     metrics_to_host,
 )
 from ..train.state import cosine_warm_restarts, make_optimizer, make_schedule
+from ..parallel.mesh import DataMesh
 from ..utils.checkpoint import save_reference_checkpoint
 from ._common import (
     add_data_flags,
@@ -41,6 +43,7 @@ from ._common import (
     prebuild_kernels,
     resolve_images,
     resolve_run_device,
+    run_data_parallel,
     split_indices,
     stream_generator,
     sync,
@@ -48,7 +51,15 @@ from ._common import (
 
 
 def run_training(args) -> dict:
+    """Train as the flags say; with --num-devices N > 1 on N spawned ranks,
+    returning rank 0's result."""
     device = resolve_run_device(args)
+    return run_data_parallel(_train, args, device) or _train(None, device, args)
+
+
+def _train(mesh: DataMesh | None, device, args) -> dict:
+    lead = mesh is None or mesh.rank == 0  # the rank that writes
+    n_ranks = 1 if mesh is None else mesh.size
     note_ignored_flags(args)
     kernel_build_s = prebuild_kernels(device)
     images = resolve_images(args)
@@ -95,14 +106,16 @@ def run_training(args) -> dict:
     )
     train_step = make_fused_vae_train_step(
         model, optimizer, cfg=dataset.transform, grad_max_norm=5.0, scheduler=scheduler,
-        **eval_kwargs,
+        mesh=mesh, **eval_kwargs,
     )
-    fused_eval = make_fused_eval(model, **eval_kwargs)
+    # the ragged val tail runs whole on every rank, as the JAX trainer's tail_eval
+    tail_eval = make_fused_eval(model, **eval_kwargs)
+    fused_eval = tail_eval if mesh is None else make_fused_eval(model, mesh=mesh, **eval_kwargs)
     frames_padded, img_idx_dev, coords_dev, _ = dataset.device_site_table
     train_idx_dev = torch.as_tensor(train_idx, dtype=torch.long, device=device)
 
     writer = None
-    if not args.no_tensorboard:
+    if lead and not args.no_tensorboard:
         from tensorboardX import SummaryWriter
 
         log_dir = Path(args.log_dir) / datetime.now().strftime("%Y%m%d-%H%M%S")
@@ -137,8 +150,10 @@ def run_training(args) -> dict:
         total_patches += steps_per_epoch * args.batch_size
 
         val_bs = min(args.batch_size, len(val_idx))
+        val_bs -= val_bs % n_ranks  # the sharded eval's batch
         val_metrics = evaluate_fused(
-            fused_eval, dataset.device_site_table, val_idx, val_bs, val_gen, logger, beta=beta,
+            fused_eval if val_bs else tail_eval, dataset.device_site_table, val_idx,
+            val_bs or len(val_idx), val_gen, logger, beta=beta, tail_eval=tail_eval,
         )
         eval_time = time.time() - t0 - train_time
 
@@ -171,17 +186,19 @@ def run_training(args) -> dict:
         val_loss = val_metrics.get("val_loss", float("inf"))
         if val_loss < best_val:
             best_val = val_loss
-            save_reference_checkpoint(
-                args.checkpoint, model.state_dict(), epoch=epoch, best_val=best_val,
-                args=ckpt_args,
-            )
-            print(f"  -> saved best checkpoint ({args.checkpoint})")
+            if lead:
+                save_reference_checkpoint(
+                    args.checkpoint, model.state_dict(), epoch=epoch, best_val=best_val,
+                    args=ckpt_args,
+                )
+                print(f"  -> saved best checkpoint ({args.checkpoint})")
 
     final_path = str(Path(args.checkpoint).with_suffix("")) + "_final.pt"
-    save_reference_checkpoint(
-        final_path, model.state_dict(), epoch=args.epochs - 1, best_val=best_val,
-        args=ckpt_args,
-    )
+    if lead:
+        save_reference_checkpoint(
+            final_path, model.state_dict(), epoch=args.epochs - 1, best_val=best_val,
+            args=ckpt_args,
+        )
     wall = time.time() - t_start
     print(f"Done in {wall:.0f}s | best val {best_val:.5f} | "
           f"{total_patches / wall:.0f} patches/sec overall")
@@ -220,7 +237,8 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     add_device_flags(
         parser,
-        "Tensor-parallel ways for the large dense layers; only 1 is supported",
+        "Tensor-parallel ways for the large dense layers; only 1 is supported "
+        "(tensor parallelism is ROADMAP item 21)",
     )
     parser.add_argument("--log-dir", type=str, default="runs/vae")
     parser.add_argument("--no-tensorboard", action="store_true")

@@ -18,10 +18,17 @@ The host-loop trainers (`train_one_epoch`, `evaluate`, `train_rvae_one_epoch`,
 `evaluate_rvae`) drive the per-batch steps over given batches (a dataset's
 `iter_epoch`), with batch i's noise drawn from a generator seeded from
 (seed, i), and put the epoch's means into a MetricLogger.
+
+Data parallelism: the fused steps and evals take `mesh=` (a
+`parallel.DataMesh`, one rank per device). Each rank draws the global batch's
+augmentation and noise and keeps its rows, the train steps run the loss
+through DistributedDataParallel, and the metrics are those of the global
+batch (parallel/mesh.py).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 from collections import defaultdict
@@ -29,18 +36,19 @@ from typing import Any, Iterable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.pipeline import (
     PairedDraws,
     extract_batch,
-    extract_batch_paired,
     extract_batch_paired_with_draws,
     sample_paired_draws,
 )
 from ..device import resolve_device
 from ..losses import rotation_diversity_loss, rvae_loss, vae_loss
-from ..metrics import latent_stats, psnr, ssim
+from ..metrics import compute_psnr, compute_ssim, latent_stats, psnr, ssim
 from ..ops.resample import rotate_image_fast
+from ..parallel.mesh import DataMesh, all_reduce_mean, gather_rows, shard_batch
 
 __all__ = [
     "FUSED_METRIC_NAMES",
@@ -65,6 +73,8 @@ __all__ = [
     "evaluate_rotation_invariance",
     "log_scalar_metrics_tensorboard",
     "log_reconstructions_tensorboard",
+    "compute_psnr",
+    "compute_ssim",
 ]
 
 FUSED_METRIC_NAMES = (
@@ -131,17 +141,17 @@ def _common_metrics(recon, x, mu, logvar, theta) -> dict[str, torch.Tensor]:
     return m
 
 
-def _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
-                      canonical_weight, eps=None, generator=None):
-    """The paired rVAE objective: rvae_loss with the cycle (or diversity)
-    term on the theta of the rotated copy, plus canonical_weight * MSE
-    between the decoder's canonical reconstruction and the STN-rotated input.
-    Returns (total, aux)."""
-    rotated_recon, canonical, theta, mu, logvar, canonical_input, theta_rot = (
-        model.train_forward_paired(x, x_rot, eps, generator)
-    )
+def _paired_terms(outputs, x, angle, beta, gamma, use_diversity, canonical_weight,
+                  mesh: DataMesh | None = None):
+    """The paired rVAE objective of `train_forward_paired`'s outputs: rvae_loss
+    with the cycle (or diversity) term on the theta of the rotated copy, plus
+    canonical_weight * MSE between the decoder's canonical reconstruction and
+    the STN-rotated input. Under a mesh the diversity term's std runs over the
+    whole batch's theta. Returns (total, aux)."""
+    rotated_recon, canonical, theta, mu, logvar, canonical_input, theta_rot = outputs
+    theta_loss = gather_rows(theta, mesh, differentiable=True) if use_diversity else theta
     _, rl, kl, cyc = rvae_loss(
-        rotated_recon, x, mu, logvar, theta, theta_rot, angle,
+        rotated_recon, x, mu, logvar, theta_loss, theta_rot, angle,
         beta=1.0, gamma=1.0, use_diversity=use_diversity,
     )
     total = rl + beta * kl + gamma * cyc
@@ -151,6 +161,75 @@ def _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
     aux = dict(recon=rotated_recon, canonical=canonical, canonical_input=canonical_input,
                theta=theta, mu=mu, logvar=logvar, rl=rl, kl=kl, cyc=cyc, canon_l=canon_l)
     return total, aux
+
+
+def _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
+                      canonical_weight, eps=None, generator=None, mesh=None):
+    """`_paired_terms` of the model's paired forward. Returns (total, aux)."""
+    return _paired_terms(model.train_forward_paired(x, x_rot, eps, generator), x, angle, beta,
+                         gamma, use_diversity, canonical_weight, mesh)
+
+
+class _Objective(torch.nn.Module):
+    """A loss as the forward of a module that holds the model, so that
+    DistributedDataParallel, which hooks a module's forward, can wrap it."""
+
+    def __init__(self, model: torch.nn.Module, loss):
+        super().__init__()
+        self.model = model
+        self.loss = loss
+
+    def forward(self, *args):
+        return self.loss(self.model, *args)
+
+
+def _objective(model, loss, mesh: DataMesh | None):
+    """loss(model, *args) as a callable. Under a mesh it runs through
+    DistributedDataParallel, which broadcasts rank 0's weights once and
+    averages the gradients over the ranks in the backward."""
+    if mesh is None:
+        return functools.partial(loss, model)
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        _Objective(model, loss), device_ids=[dev] if dev.type == "cuda" else None)
+
+
+def _latent_dim(model) -> int:
+    return model.decoder.fc.in_features
+
+
+def _global_draws(B: int, cfg, generator, dev, draws, eps, latent_dim: int,
+                  mesh: DataMesh | None, paired: bool):
+    """One global batch's augmentation draws and noise, given or drawn from
+    `generator` in the single-device order (draws, then noise), and this
+    rank's rows of them. The paired extraction always draws (its angle at
+    least), the unpaired one only with a cfg. Without a mesh the noise stays
+    None unless given: the model draws it."""
+    if draws is None and (paired or cfg is not None):
+        draws = sample_paired_draws(B, cfg, generator, dev)
+    if mesh is None:
+        return draws, eps
+    if eps is None:
+        eps = torch.randn((B, latent_dim), generator=generator, dtype=torch.float32, device=dev)
+    if draws is not None:
+        draws = PairedDraws(**{k: shard_batch(v, mesh) for k, v in vars(draws).items()})
+    return draws, shard_batch(eps, mesh)
+
+
+def _global_std(sums: list[torch.Tensor], n: int, mesh: DataMesh) -> torch.Tensor:
+    """The sum over steps of theta's std (Bessel) over each step's global batch
+    of n, from each rank's per-step [sum, sum of squares] in float64."""
+    s = torch.stack(sums)
+    dist.all_reduce(s)
+    var = (s[:, 1] - s[:, 0] ** 2 / n) / (n - 1)
+    return torch.sqrt(torch.clamp(var, min=0.0)).sum().float()
+
+
+def _theta_sums(theta: torch.Tensor) -> torch.Tensor:
+    t = theta.detach().double()
+    return torch.stack([t.sum(), (t * t).sum()])
 
 
 def _update(model, optimizer, total, grad_max_norm, scheduler=None) -> torch.Tensor:
@@ -168,12 +247,17 @@ def _update(model, optimizer, total, grad_max_norm, scheduler=None) -> torch.Ten
     return gnorm
 
 
-def _generic_loss(model, x, beta, gamma, use_diversity, eps=None, generator=None):
+def _generic_loss(model, x, beta, gamma, use_diversity, eps=None, generator=None, mesh=None):
+    """`_generic_terms` of the model's forward. Returns (total, aux)."""
+    return _generic_terms(model(x, eps, generator), x, beta, gamma, use_diversity, mesh)
+
+
+def _generic_terms(outputs, x, beta, gamma, use_diversity, mesh: DataMesh | None = None):
     """The unpaired objective, dispatched on the model's outputs: the
     mean-reduced VAE loss on the (rotated) reconstruction, plus gamma times the
-    rotation-diversity term for a 5-output model when asked. Returns
-    (total, aux); aux's theta and canonical are None for a plain VAE."""
-    outputs = model(x, eps, generator)
+    rotation-diversity term (over the whole batch's theta under a mesh) for a
+    5-output model when asked. Returns (total, aux); aux's theta and canonical
+    are None for a plain VAE."""
     if len(outputs) == 3:
         recon, mu, logvar = outputs
         canonical = theta = None
@@ -183,7 +267,7 @@ def _generic_loss(model, x, beta, gamma, use_diversity, eps=None, generator=None
     total = rl + beta * kl
     cyc = torch.zeros((), device=x.device)
     if use_diversity and theta is not None:
-        cyc = rotation_diversity_loss(theta)
+        cyc = rotation_diversity_loss(gather_rows(theta, mesh, differentiable=True))
         total = total + gamma * cyc
     aux = dict(recon=recon, canonical=canonical, theta=theta, mu=mu, logvar=logvar,
                rl=rl, kl=kl, cyc=cyc)
@@ -265,32 +349,57 @@ def make_rvae_train_step(model, optimizer, *, use_diversity: bool = False,
 def make_fused_rvae_train_step(model, optimizer, *, patch_size: int, padding: int, cfg,
                                margin: int, use_diversity: bool = False,
                                canonical_weight: float = 0.2, grad_max_norm: float = 20.0,
-                               normalize: bool = True, scheduler=None, device=None):
+                               normalize: bool = True, scheduler=None, device=None,
+                               mesh: DataMesh | None = None):
     """Whole-epoch rVAE training: paired extraction + one optimizer step per
     row of idx_batches.
 
     Returns step(frames_padded, img_idx, coords, idx_batches[S, B], generator,
-    beta, gamma) -> {name: 0-d device tensor}, the means over the S steps.
-    Augmentation draws and the reparameterisation noise come from
-    `generator` (on the device).
+    beta, gamma, draws=None, eps=None) -> {name: 0-d device tensor}, the means
+    over the S steps. Augmentation draws and the reparameterisation noise come
+    from `generator` (on the device); `draws` (one PairedDraws per step) and
+    `eps` (one [B, latent] tensor per step) replace them, to reproduce another
+    implementation's randomness. With `mesh`, idx_batches, draws and eps are
+    the global batch's and this rank trains on its rows of them.
     """
     dev = _on_device(model, device)
     rot_dtype = model.compute_dtype  # the rotated copy feeds only the STN's convs
 
-    def step(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma):
+    def loss(model, x, x_rot, angle, beta, gamma, eps, generator):
+        return _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
+                                 canonical_weight, eps, generator, mesh)
+
+    objective = _objective(model, loss, mesh)
+
+    def step(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma,
+             draws: list[PairedDraws] | None = None, eps=None):
         acc = torch.zeros(len(FUSED_METRIC_NAMES), device=dev)
-        for idx in idx_batches:
+        theta_sums = []
+        for i, idx in enumerate(idx_batches):
             with torch.no_grad():
-                x, x_rot, angle = extract_batch_paired(
-                    frames_padded, img_idx[idx], coords[idx], generator, patch_size, padding,
-                    cfg=cfg, margin=margin, normalize=normalize, rot_dtype=rot_dtype,
+                d, e = _global_draws(idx.shape[0], cfg, generator, dev,
+                                     None if draws is None else draws[i],
+                                     None if eps is None else eps[i], _latent_dim(model),
+                                     mesh, paired=True)
+                idx = shard_batch(idx, mesh)
+                x, x_rot, angle = extract_batch_paired_with_draws(
+                    frames_padded, img_idx[idx], coords[idx], d, patch_size, padding,
+                    margin=margin, normalize=normalize, rot_dtype=rot_dtype,
                 )
-            total, aux = _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
-                                           canonical_weight, generator=generator)
+            total, aux = objective(x, x_rot, angle, beta, gamma, e, generator)
             gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
             with torch.no_grad():
+                if mesh is None:
+                    theta_std = torch.std(aux["theta"])
+                else:  # the global batch's std, from every rank's sums after the loop
+                    theta_std = torch.zeros((), device=dev)
+                    theta_sums.append(_theta_sums(aux["theta"]))
                 acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], aux["canon_l"],
-                                    torch.std(aux["theta"]), gnorm]).detach()
+                                    theta_std, gnorm]).detach()
+        if mesh is not None:
+            acc = all_reduce_mean(acc, mesh)
+            acc[FUSED_METRIC_NAMES.index("rotation_std")] = _global_std(
+                theta_sums, idx_batches.shape[1], mesh)
         return dict(zip(FUSED_METRIC_NAMES, acc / len(idx_batches)))
 
     return step
@@ -299,7 +408,7 @@ def make_fused_rvae_train_step(model, optimizer, *, patch_size: int, padding: in
 def make_fused_vae_train_step(model, optimizer, *, patch_size: int, padding: int, cfg,
                               margin: int, use_diversity: bool = False,
                               grad_max_norm: float = 5.0, normalize: bool = True,
-                              scheduler=None, device=None):
+                              scheduler=None, device=None, mesh: DataMesh | None = None):
     """Whole-epoch generic training on unpaired, augmented batches (the
     mean-reduced VAE loss; dispatch on the model's outputs as in
     `make_train_step`).
@@ -308,32 +417,44 @@ def make_fused_vae_train_step(model, optimizer, *, patch_size: int, padding: int
     beta, gamma, draws=None, eps=None) -> {name: 0-d device tensor}, the means
     over the S steps. `draws` (one PairedDraws per step) and `eps` (one
     [B, latent] tensor per step) replace the generator's draws, to reproduce
-    another implementation's randomness.
+    another implementation's randomness. With `mesh`, as
+    `make_fused_rvae_train_step`.
     """
     dev = _on_device(model, device)
+
+    def loss(model, x, beta, gamma, eps, generator):
+        return _generic_loss(model, x, beta, gamma, use_diversity, eps, generator, mesh)
+
+    objective = _objective(model, loss, mesh)
 
     def step(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma,
              draws: list[PairedDraws] | None = None, eps=None):
         acc = torch.zeros(len(FUSED_VAE_METRIC_NAMES), device=dev)
         for i, idx in enumerate(idx_batches):
             with torch.no_grad():
+                d, e = _global_draws(idx.shape[0], cfg, generator, dev,
+                                     None if draws is None else draws[i],
+                                     None if eps is None else eps[i], _latent_dim(model),
+                                     mesh, paired=False)
+                idx = shard_batch(idx, mesh)
                 x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
-                                  normalize=normalize, margin=margin, cfg=cfg,
-                                  generator=generator,
-                                  draws=None if draws is None else draws[i])
-            total, aux = _generic_loss(model, x, beta, gamma, use_diversity,
-                                       None if eps is None else eps[i], generator)
+                                  normalize=normalize, margin=margin, cfg=cfg, draws=d)
+            total, aux = objective(x, beta, gamma, e, generator)
             gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
             with torch.no_grad():
                 acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], gnorm]).detach()
-        return dict(zip(FUSED_VAE_METRIC_NAMES, acc / len(idx_batches)))
+        return dict(zip(FUSED_VAE_METRIC_NAMES, all_reduce_mean(acc, mesh) / len(idx_batches)))
 
     return step
 
 
 def _generic_eval_metrics(model, x, beta, gamma, use_diversity, canonical_weight, eps,
-                          generator):
-    total, aux = _generic_loss(model, x, beta, gamma, use_diversity, eps, generator)
+                          generator, outputs=None):
+    """The generic eval metrics of x; `outputs` (the model's on x) skip the
+    forward."""
+    if outputs is None:
+        outputs = model(x, eps, generator)
+    total, aux = _generic_terms(outputs, x, beta, gamma, use_diversity)
     metrics = {"loss": total, "recon_loss": aux["rl"], "kld_loss": aux["kl"],
                "cycle_loss": aux["cyc"]}
     metrics.update(_common_metrics(aux["recon"], x, aux["mu"], aux["logvar"], aux["theta"]))
@@ -345,9 +466,12 @@ def _generic_eval_metrics(model, x, beta, gamma, use_diversity, canonical_weight
 
 
 def _rvae_eval_metrics(model, x, x_rot, angle, beta, gamma, use_diversity, canonical_weight,
-                       eps, generator):
-    total, aux = _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
-                                   canonical_weight, eps, generator)
+                       eps, generator, outputs=None):
+    """The paired eval metrics of (x, x_rot, angle); `outputs` (the model's
+    paired forward on them) skip the forward."""
+    if outputs is None:
+        outputs = model.train_forward_paired(x, x_rot, eps, generator)
+    total, aux = _paired_terms(outputs, x, angle, beta, gamma, use_diversity, canonical_weight)
     metrics = {
         "loss": total,
         "recon_loss": aux["rl"],
@@ -361,16 +485,21 @@ def _rvae_eval_metrics(model, x, x_rot, angle, beta, gamma, use_diversity, canon
     return metrics
 
 
+def _gathered(outputs, mesh: DataMesh | None):
+    return None if mesh is None else tuple(gather_rows(o, mesh) for o in outputs)
+
+
 def make_fused_rvae_eval(model, *, patch_size: int, padding: int, cfg, margin: int,
                          use_diversity: bool = False, canonical_weight: float = 0.2,
-                         normalize: bool = True, device=None):
+                         normalize: bool = True, device=None, mesh: DataMesh | None = None):
     """Paired rVAE eval over [S, B] index batches, without gradients.
 
     Returns eval(frames_padded, img_idx, coords, idx_batches, generator, beta,
     gamma, draws=None, eps=None) -> {name: [S] device tensor}. `draws` (one
     PairedDraws per batch) and `eps` (one [B, latent] tensor per batch)
     replace the generator's draws, to reproduce another implementation's
-    randomness.
+    randomness. With `mesh` each rank runs the model on its rows of every
+    batch, and the metrics are those of the gathered batch, on every rank.
     """
     dev = _on_device(model, device)
     rot_dtype = model.compute_dtype
@@ -380,15 +509,22 @@ def make_fused_rvae_eval(model, *, patch_size: int, padding: int, cfg, margin: i
                  draws: list[PairedDraws] | None = None, eps=None):
         per_batch = []
         for i, idx in enumerate(idx_batches):
-            d = draws[i] if draws is not None else sample_paired_draws(
-                idx.shape[0], cfg, generator, dev)
+            d, e = _global_draws(idx.shape[0], cfg, generator, dev,
+                                 None if draws is None else draws[i],
+                                 None if eps is None else eps[i], _latent_dim(model), mesh,
+                                 paired=True)
+            idx = shard_batch(idx, mesh)
             x, x_rot, angle = extract_batch_paired_with_draws(
                 frames_padded, img_idx[idx], coords[idx], d, patch_size, padding,
                 margin=margin, normalize=normalize, rot_dtype=rot_dtype,
             )
+            outputs = None
+            if mesh is not None:
+                outputs = _gathered(model.train_forward_paired(x, x_rot, e), mesh)
+                x, angle = gather_rows(x, mesh), gather_rows(angle, mesh)
             per_batch.append(_rvae_eval_metrics(
-                model, x, x_rot, angle, beta, gamma, use_diversity, canonical_weight,
-                None if eps is None else eps[i], generator,
+                model, x, x_rot, angle, beta, gamma, use_diversity, canonical_weight, e,
+                generator, outputs,
             ))
         return {k: torch.stack([m[k] for m in per_batch]) for k in per_batch[0]}
 
@@ -425,25 +561,33 @@ def make_rvae_eval_step(model, *, use_diversity: bool = False, canonical_weight:
 
 def make_fused_eval(model, *, patch_size: int, padding: int, margin: int,
                     use_diversity: bool = False, canonical_weight: float = 0.0,
-                    normalize: bool = True, device=None):
+                    normalize: bool = True, device=None, mesh: DataMesh | None = None):
     """Generic eval over [S, B] index batches: un-augmented extraction and the
     eval metrics, without gradients.
 
     Returns eval(frames_padded, img_idx, coords, idx_batches, generator, beta,
     gamma, eps=None) -> {name: [S] device tensor}; `eps` (one [B, latent]
-    tensor per batch) replaces the generator's noise.
+    tensor per batch) replaces the generator's noise. With `mesh`, as
+    `make_fused_rvae_eval`.
     """
-    _on_device(model, device)
+    dev = _on_device(model, device)
 
     @torch.no_grad()
     def evaluate(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma, eps=None):
         per_batch = []
         for i, idx in enumerate(idx_batches):
+            _, e = _global_draws(idx.shape[0], None, generator, dev, None,
+                                 None if eps is None else eps[i], _latent_dim(model), mesh,
+                                 paired=False)
+            idx = shard_batch(idx, mesh)
             x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
                               normalize=normalize, margin=margin)
+            outputs = None
+            if mesh is not None:
+                outputs = _gathered(model(x, e), mesh)
+                x = gather_rows(x, mesh)
             per_batch.append(_generic_eval_metrics(
-                model, x, beta, gamma, use_diversity, canonical_weight,
-                None if eps is None else eps[i], generator,
+                model, x, beta, gamma, use_diversity, canonical_weight, e, generator, outputs,
             ))
         return {k: torch.stack([m[k] for m in per_batch]) for k in per_batch[0]}
 
@@ -452,10 +596,11 @@ def make_fused_eval(model, *, patch_size: int, padding: int, margin: int,
 
 def evaluate_fused(fused_eval, site_table, val_idx, batch_size: int, generator,
                    metric_logger: MetricLogger | None = None, beta: float = 1.0,
-                   gamma: float = 0.0, prefix: str = "val_") -> dict[str, float]:
+                   gamma: float = 0.0, prefix: str = "val_", tail_eval=None) -> dict[str, float]:
     """Run a fused eval over all val sites: the full batches, then the ragged
-    tail (val size not divisible by batch_size) as one smaller batch. Batches
-    weigh equally, the tail too."""
+    tail (val size not divisible by batch_size) as one smaller batch, through
+    `tail_eval` where given (the eval without a mesh, as the JAX package's
+    `tail_eval`). Batches weigh equally, the tail too."""
     frames_padded, img_idx, coords, _ = site_table
     val_idx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long, device=frames_padded.device)
     n = len(val_idx)
@@ -467,7 +612,8 @@ def evaluate_fused(fused_eval, site_table, val_idx, batch_size: int, generator,
         per_batch.append(fused_eval(frames_padded, img_idx, coords, main, generator, beta, gamma))
     if n_full * bs < n:
         tail = val_idx[n_full * bs :].reshape(1, -1)
-        per_batch.append(fused_eval(frames_padded, img_idx, coords, tail, generator, beta, gamma))
+        per_batch.append((tail_eval or fused_eval)(frames_padded, img_idx, coords, tail,
+                                                   generator, beta, gamma))
     sums: dict[str, float] = defaultdict(float)
     count = 0
     for d in per_batch:

@@ -149,10 +149,23 @@ def test_freeze_stn_leaves_the_stns_bits(tmp_path):
 @pytest.mark.parametrize("flags", [["--num-devices", "2"], ["--model-parallel", "2"],
                                    ["--num-devices", "4", "--model-parallel", "2"]])
 @pytest.mark.parametrize("script", [train_rvae, train_vae], ids=["rvae", "vae"])
-def test_more_than_one_device_exits_with_the_roadmap_item(script, flags):
-    args = script.build_argparser().parse_args([*SMALL, *flags])
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 15"):
-        script.run_training(args)
+def test_more_than_one_device_exits_with_the_roadmap_item(tmp_path, script, flags):
+    """`--num-devices 2` trains on 2 gloo ranks (data parallelism, ROADMAP item
+    15, is ported); tensor parallelism (`--model-parallel 2`) exits naming its
+    item, 21."""
+    ckpt = tmp_path / "m.pt"
+    args = script.build_argparser().parse_args(
+        [*SMALL, *flags, "--epochs", "1", "--val-split", "0.2", "--checkpoint", str(ckpt)])
+    if "--model-parallel" in flags:
+        with pytest.raises(SystemExit, match="ROADMAP queue 1, item 21"):
+            script.run_training(args)
+        return
+    out = script.run_training(args)
+    assert len(out["epochs"]) == 1
+    assert all(np.isfinite(v) for k, v in out["epochs"][0]["metrics"].items()
+               if k.startswith("train_"))
+    assert ckpt.exists() and ckpt.with_name("m_final.pt").exists()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["m.pt", "m_final.pt"]
 
 
 def test_auto_devices_and_ignored_flags(tmp_path, capsys):

@@ -59,7 +59,9 @@ NEW_MODULES = ["bench", "data.h5", "scripts._common", "scripts.train_rvae", "scr
                "scripts.train_rvae_with_best", "scripts.analyze_raytune_results",
                "scripts.compare_training_methods", "scripts.test_raytune_deps",
                "sweep.stacked", "scripts.bench_stacked", "scripts.compare_vae_rvae",
-               "scripts.compare_resample_elbo", "scripts.accuracy_program"]
+               "scripts.compare_resample_elbo", "scripts.accuracy_program",
+               "parallel", "parallel.mesh", "scripts.profile_components",
+               "scripts.verify_raytune", "profile_step"]
 
 
 def test_port_imports_no_jax_and_builds_nothing():
