@@ -116,7 +116,15 @@ Run from the repository root:  python3 chip_smoke.py
    tensors, f32, 2 steps, diversity off (gloo gathers no CUDA tensor),
    against one process: step means within 1e-5, weights within 1e-5 but for
    under 0.1 % (Adam's near-zero-gradient flips); rot3 3 / 2 per step.
-17. profile: `python -m livae_tpu_torch.profile_step --path paired vae patch
+17. tensor_parallel: 2 gloo ranks spawned on the one card as 1 data x 2 model
+   ways (the large dense layers split Megatron-style), CUDA tensors, f32 at
+   the main path's widths, 2 fused steps with the diversity term and one
+   fused eval batch (on the one process's weights, sliced again) against one
+   process: means within 1e-5, gathered weights within 1e-5 but for under
+   0.1 % (Adam's flips); rot3 3 / 2 per step and 3
+   per eval batch on rank 0; rank 0 holds 925,696 fewer parameters; the
+   gathered state loads into a plain RVAE that encodes as the split one.
+18. profile: `python -m livae_tpu_torch.profile_step --path paired vae patch
    encode stacked --steps 2` as a process (its report printed), then
    `profile_components --reps 3` in this process.
 Around each driven path the launch counters are zeroed just before and read
@@ -1912,6 +1920,166 @@ def parallel_phase(ds):
             "launches": nccl["launches"], "gloo_launches": two["launches"]}
 
 
+TP_STEPS = 2
+# rank 0's share of the split layers at patch 128 over 2 model ways: half of
+# the four weights' 1,835,008 elements and half of decoder.fc's 16,384 biases
+TP_PARAMS_SAVED = 1_835_008 // 2 + 16_384 // 2
+
+
+def _tp_run(mesh, device, state, table, idx, draws, eps, vidx, vdraws, veps, probe,
+            eval_state=None):
+    """TP_STEPS fused rVAE train steps (diversity on) and one fused eval batch
+    of an f32 model loaded from `state`, its large dense layers split over
+    `mesh`'s model ways (None: this process alone, unsplit); the eval runs on
+    the weights of `eval_state` (a one-device state dict, sliced again) where
+    given. Returns the step and eval means, the one-device weights after the
+    steps (on the host) and mu of `probe` under them, each rank's parameter
+    count and bytes and rot3's launches."""
+    import torch.distributed as dist
+
+    from livae_tpu_torch.parallel import (
+        dense_param_specs,
+        full_state_dict,
+        load_full_state_dict,
+        place_with_specs,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frames_padded, img_idx, coords, margin = (t.to(device) if torch.is_tensor(t) else t
+                                              for t in table)
+    model = RVAE(LATENT, 1, PATCH, device=device)
+    model.load_state_dict(state)
+    if mesh is not None:
+        place_with_specs(model, mesh, dense_param_specs(model, mesh.model_size))
+    held = torch.tensor([[sum(p.numel() for p in model.parameters()),
+                          sum(p.numel() * p.element_size() for p in model.parameters())]],
+                        dtype=torch.float64)
+    if mesh is not None:  # every rank's figures, on the host (gloo)
+        held = torch.zeros((mesh.size * mesh.model_size, 2), dtype=torch.float64).index_copy_(
+            0, torch.tensor([mesh.world_rank]), held)
+        dist.all_reduce(held)
+    opt = make_optimizer(model.parameters(), 1e-3, optimizer="adamw", weight_decay=1e-5)
+    kw = dict(patch_size=PATCH, padding=PADDING, cfg=default_transform, margin=margin,
+              use_diversity=True, canonical_weight=0.2, device=device, mesh=mesh)
+    step = make_fused_rvae_train_step(model, opt, grad_max_norm=20.0, **kw)
+    ev = make_fused_rvae_eval(model, **kw)
+    zero_counts()
+    per_step, step_ms = [], []
+    for i in range(TP_STEPS):  # one call per step, to time the later ones
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        per_step.append(metrics_to_host(step(
+            frames_padded, img_idx, coords, idx[i:i + 1].to(device), None, 10.0, 10.0,
+            draws=_on(device, draws[i:i + 1]), eps=[eps[i].to(device)])))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    m = {k: sum(d[k] for d in per_step) / TP_STEPS for k in per_step[0]}
+    train_launches = counts()
+    collective_ms = {}
+    if mesh is not None:  # gloo's all-reduce of the STN's and the heads' gathered gradients
+        for name, shape in (("stn_input_grad", (2 * BATCH, 32 * (PATCH // 4) ** 2)),
+                            ("head_input_grad", (BATCH, 256 * (PATCH // 16) ** 2))):
+            buf = torch.zeros(shape, device=device)
+            dist.all_reduce(buf, group=mesh.model_group)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                dist.all_reduce(buf, group=mesh.model_group)
+            torch.cuda.synchronize(device)
+            collective_ms[name] = {"mb": buf.numel() * 4 / 1e6,
+                                   "ms": (time.perf_counter() - t0) / 3 * 1e3}
+    trained = {k: v.detach().cpu() for k, v in full_state_dict(model, mesh).items()}
+    with torch.no_grad():
+        mu = model.encode(probe.to(device))[0].cpu()
+    if eval_state is not None:
+        load_full_state_dict(model, eval_state, mesh)
+    zero_counts()
+    em = metrics_to_host(ev(frames_padded, img_idx, coords, vidx.to(device), None, 10.0, 10.0,
+                            draws=_on(device, vdraws), eps=[e.to(device) for e in veps]))
+    torch.cuda.synchronize(device)
+    eval_launches = counts()
+    return {"metrics": m, "eval": em, "mu": mu, "state": trained, "step_ms": step_ms,
+            "collective_ms": collective_ms, "params": held[:, 0].long().tolist(), "param_bytes": held[:, 1].long().tolist(),
+            "train_launches": train_launches, "eval_launches": eval_launches}
+
+
+def tensor_parallel_phase(ds):
+    """Tensor parallelism (livae_tpu_torch.parallel: the split dense layers)
+    on the one card: 2 gloo ranks spawned as 1 data x 2 model ways, CUDA
+    tensors, the main path's widths in f32 with TF32 off, each rank holding
+    all 512 rows; 2 fused train steps with the diversity term (its gather is
+    over a data group of one) and one fused eval batch, against the same in
+    one process from the same weights, draws and noise: step means within
+    1e-5, the gathered weights within 1e-5 but for Adam's near-zero-gradient
+    flips (under 0.1 %, within 2 lr per step); the eval, on the one process's
+    weights after the steps sliced again onto the ranks (the flipped weights
+    alone move the eval's means by 5.4e-5), within 1e-5. Rank 0
+    launches rot3 3 / 2 times per step and 3 times per eval batch, and holds
+    TP_PARAMS_SAVED fewer parameters than one device; the gathered state
+    loads into a plain RVAE whose mu of a probe batch is the split model's
+    (within 1e-5)."""
+    from livae_tpu_torch.parallel import spawn
+
+    fp, img_idx, coords, margin = ds.device_site_table
+    n = len(ds)
+    g = torch.Generator().manual_seed(41)
+    start = RVAE(LATENT, 1, PATCH, device="cpu", generator=torch.Generator().manual_seed(40))
+    state = {k: v.clone() for k, v in start.state_dict().items()}
+    idx = torch.randint(0, n, (TP_STEPS, BATCH), generator=g)
+    draws = [sample_paired_draws(BATCH, default_transform, g, "cpu") for _ in range(TP_STEPS)]
+    eps = [torch.randn((BATCH, LATENT), generator=g) for _ in range(TP_STEPS)]
+    vidx = torch.randint(0, n, (1, BATCH), generator=g)
+    vdraws = [sample_paired_draws(BATCH, default_transform, g, "cpu")]
+    veps = [torch.randn((BATCH, LATENT), generator=g)]
+    probe = torch.rand((64, 1, PATCH, PATCH), generator=g)
+    args = ((fp.cpu(), img_idx.cpu(), coords.cpu(), margin), idx, draws, eps, vidx, vdraws,
+            veps, probe)
+    one = _tp_run(None, torch.device("cuda"), state, *args)
+    t0 = time.perf_counter()
+    split = spawn(_tp_run, 2, state, *args, one["state"], device_type="cuda",
+                  backend="gloo", root=tempfile.gettempdir(), model_parallel=2)
+    tp_s = time.perf_counter() - t0
+    w_max, w_share = _weights_diff(split["state"], one["state"])
+    m_diff = _metrics_diff(split["metrics"], one["metrics"])
+    e_diff = _metrics_diff(split["eval"], one["eval"])
+    plain = RVAE(LATENT, 1, PATCH, device="cuda")
+    plain.load_state_dict(split["state"], strict=True)
+    with torch.no_grad():
+        mu_diff = float((plain.encode(probe.cuda())[0].cpu() - split["mu"]).abs().max())
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 paths' setting, as the main path left it
+    saved = one["params"][0] - split["params"][0]
+    print(f"tensor_parallel: 1 data x 2 model gloo ranks on the card, {TP_STEPS} steps f32 "
+          f"batch {BATCH} with diversity: step means max rel diff {m_diff:.3e}, eval "
+          f"{e_diff:.3e} (tol 1e-5), weights max diff {w_max:.3e}, share beyond 1e-5 "
+          f"{w_share:.2e}, mu of the gathered model {mu_diff:.3e}; rank params "
+          f"{split['params']} against {one['params'][0]} ({saved} fewer), rank 0 launches "
+          f"train {split['train_launches']} eval {split['eval_launches']}; step ms "
+          f"{[round(t, 1) for t in split['step_ms']]} (one process "
+          f"{[round(t, 1) for t in one['step_ms']]}), gloo all-reduce "
+          f"{json.dumps(split['collective_ms'])}; {tp_s:.1f} s")
+    check(m_diff <= 1e-5 and e_diff <= 1e-5 and w_share < 1e-3
+          and w_max <= 2 * 1e-3 * TP_STEPS, "the split ranks differ from one process")
+    check(mu_diff <= 1e-5, f"the gathered state's model encodes {mu_diff} apart")
+    check(saved == TP_PARAMS_SAVED and split["params"][0] == split["params"][1],
+          f"rank parameters {split['params']} against {one['params'][0]}")
+    want_train = {**NO_LAUNCH, "rot3_fwd": 3 * TP_STEPS, "rot3_bwd": 2 * TP_STEPS}
+    check(split["train_launches"] == want_train and one["train_launches"] == want_train,
+          f"rank 0 train launches {split['train_launches']}")
+    check(split["eval_launches"] == {**NO_LAUNCH, "rot3_fwd": 3},
+          f"rank 0 eval launches {split['eval_launches']}")
+    launches = {k: split["train_launches"][k] + split["eval_launches"][k] for k in NO_LAUNCH}
+    return {"mesh": "1 data x 2 model (gloo, one card)", "steps": TP_STEPS,
+            "steps_metrics_max_rel_diff": m_diff, "eval_metrics_max_rel_diff": e_diff,
+            "weights_max_diff": w_max, "weights_share_beyond_1e-5": w_share,
+            "gathered_mu_max_diff": mu_diff, "params_per_rank": split["params"],
+            "param_bytes_per_rank": split["param_bytes"], "params_one_device": one["params"][0],
+            "param_bytes_one_device": one["param_bytes"][0], "seconds": tp_s,
+            "rank0_step_ms": split["step_ms"], "one_process_step_ms": one["step_ms"],
+            "rank0_gloo_all_reduce": split["collective_ms"],
+            "train_launches": split["train_launches"], "eval_launches": split["eval_launches"],
+            "launches": launches}
+
+
 def profile_phase():
     """The profilers: `profile_step --path paired vae patch encode stacked
     --steps 2` as a user runs it, in a fresh process (each path's first
@@ -2039,6 +2207,8 @@ def main() -> int:
     print("exports " + json.dumps({"card": smi, **exports}))
     parallel = timed("parallel", parallel_phase, ds)
     print("parallel " + json.dumps({"card": smi, **parallel}))
+    tensor_parallel = timed("tensor_parallel", tensor_parallel_phase, ds)
+    print("tensor_parallel " + json.dumps({"card": smi, **tensor_parallel}))
     rot_launches = timed("rotation", rotation_path_phase)
     exact = timed("exact_resample", exact_train_phase, ds)
     print("exact_resample_path " + json.dumps({"card": smi, **exact}))
@@ -2102,6 +2272,7 @@ def main() -> int:
                "host_loop": host_loop["launches"], "exports": exports["launches"],
                "parallel_nccl": parallel["launches"],
                "parallel_gloo_rank0": parallel["gloo_launches"],
+               "tensor_parallel_rank0": tensor_parallel["launches"],
                **{f"sweep_{name}": run["launches"] for name, run in sweep.items()},
                "stacked": stacked["launches"],
                **{name: run["launches"] for name, run in compare.items()}}
@@ -2111,6 +2282,8 @@ def main() -> int:
         plan = R.launch_plan(SHAPE[1], k["name"][5:])
         k.update(cluster=plan.cluster, smem_per_block=plan.smem)
         check(k["launches_by_path"]["train_rvae"] > 0, f"train_rvae launched no {k['name']}")
+        check(k["launches_by_path"]["tensor_parallel_rank0"] > 0,
+              f"the tensor-parallel rank 0 launched no {k['name']}")
     for k in kernels[2:]:  # kernel C: f32 axis 2 above; every timed case beside it
         d = k["name"][6:]
         k.update(dtype="float32", axis=2, shifts="rotation", cases={

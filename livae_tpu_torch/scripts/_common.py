@@ -3,7 +3,8 @@
 Data resolution: `--data` .h5 paths, else data/*.h5, else `--synthetic N`
 ground-truthed synthetic MoS2 frames. Device flags: the entry points run on
 the CUDA device unless `--cpu` is passed; the trainers' `--num-devices N`
-runs them on N spawned ranks (`run_data_parallel`). Randomness: every epoch's generator
+runs them on N spawned ranks, N / M data ways x M model ways with
+`--model-parallel M` (`run_data_parallel`). Randomness: every epoch's generator
 is seeded from (seed, stream, epoch), so a resumed run draws what an
 uninterrupted one draws. Kernels: every entry point builds them with
 `prebuild_kernels` before its first timed step.
@@ -25,7 +26,14 @@ from ..data.h5 import load_image_from_h5
 from ..data.synthetic import synthetic_mos2_frame
 from ..device import resolve_device
 from ..ops import rot3, shear
-from ..parallel.mesh import setup_mesh_from_flags, spawn
+from ..parallel.mesh import (
+    DataMesh,
+    dense_param_specs,
+    place_with_specs,
+    setup_mesh_from_flags,
+    spawn,
+)
+from ..parallel.tensor import full_optimizer_state, full_state_dict, unplace
 
 
 def resolve_images(args) -> list[np.ndarray]:
@@ -93,24 +101,39 @@ def resolve_run_device(args) -> torch.device:
 
 def _rank_run(mesh, device, train, args) -> dict:
     out = train(mesh, device, args)
+    unplace(out["model"])  # every rank gathers; rank 0's one-device model pickles
     return {k: v for k, v in out.items() if k not in ("optimizer", "scheduler")}
 
 
-def run_data_parallel(train, args, device: torch.device) -> dict | None:
+def run_data_parallel(train, args, device: torch.device, model_fn=None) -> dict | None:
     """With --num-devices N > 1: build the kernels once, run train(mesh,
-    device, args) on N spawned ranks (rendezvous in the checkpoint's
-    directory) and return rank 0's result, less its optimizer and schedule
-    (they do not pickle). None for one device: the caller trains in this
-    process. Exits on flags the mesh cannot take (`setup_mesh_from_flags`)."""
-    n = setup_mesh_from_flags(getattr(args, "num_devices", "1"),
-                              getattr(args, "model_parallel", 1), args.batch_size, device.type)
-    if n == 1:
+    device, args) on N spawned ranks, N / M data ways x M model ways with
+    --model-parallel M (rendezvous in the checkpoint's directory), and return
+    rank 0's result, its model gathered into the one-device model, less its
+    optimizer and schedule (they do not pickle). None for one device: the
+    caller trains in this process. Exits on flags the mesh cannot take
+    (`setup_mesh_from_flags`); `model_fn()` builds a host copy of the run's
+    model for the count of split parameters it prints."""
+    mp = int(getattr(args, "model_parallel", 1))
+    n_data, n_model = setup_mesh_from_flags(
+        getattr(args, "num_devices", "1"), mp, args.batch_size, device.type,
+        model_fn() if mp > 1 and model_fn is not None else None)
+    if n_data * n_model == 1:
         return None
     build_s = prebuild_kernels(device)
-    result = spawn(_rank_run, n, train, args, device_type=device.type,
-                   root=Path(args.checkpoint).parent)
+    result = spawn(_rank_run, n_data * n_model, train, args, device_type=device.type,
+                   root=Path(args.checkpoint).parent, model_parallel=n_model)
     result["kernel_build_s"] = build_s
     return result
+
+
+def place_model(model: torch.nn.Module, mesh: DataMesh | None) -> torch.nn.Module:
+    """Under a mesh with model ways, split the model's large dense layers
+    over them (`dense_param_specs`, `place_with_specs`); the optimizer must
+    be built after. Returns the model."""
+    if mesh is not None and mesh.model_size > 1:
+        place_with_specs(model, mesh, dense_param_specs(model, mesh.model_size))
+    return model
 
 
 def note_ignored_flags(args) -> None:
@@ -167,10 +190,11 @@ def epoch_index_batches(train_idx: torch.Tensor, batch_size: int,
     return train_idx[perm[: steps * batch_size]].reshape(steps, batch_size)
 
 
-def state_digest(model, optimizer, scheduler=None) -> str:
+def state_digest(model, optimizer, scheduler=None, mesh: DataMesh | None = None) -> str:
     """Order-stable sha256 over every weight, optimizer-state tensor and the
     schedule's count (LIVAE_PARAM_HASH=1 prints it each epoch): a resumed run
-    must print the digests of an uninterrupted one."""
+    must print the digests of an uninterrupted one. Under a model axis the
+    state is the one-device state, gathered (every rank calls this)."""
     h = hashlib.sha256()
 
     def feed(obj):
@@ -183,8 +207,8 @@ def state_digest(model, optimizer, scheduler=None) -> str:
             for v in obj:
                 feed(v)
 
-    feed(model.state_dict())
-    feed(optimizer.state_dict()["state"])
+    feed(full_state_dict(model, mesh))
+    feed(full_optimizer_state(optimizer, mesh)["state"])
     h.update(str(scheduler.last_epoch if scheduler is not None else 0).encode())
     return h.hexdigest()[:16]
 

@@ -14,9 +14,11 @@ On the card the convolutions run in bfloat16 (--no-amp: float32). --cpu runs
 the plain PyTorch versions on the CPU, and is the only way onto it.
 --num-devices N (or "auto") trains on N ranks, one process per device (NCCL on
 the cards, gloo with --cpu), the global batch shared out among them step for
-step as on one device (parallel/mesh.py); rank 0 alone writes checkpoints,
-logs and the results. --num-workers, --prefetch-factor and --compile are
-accepted and ignored.
+step as on one device (parallel/mesh.py); with --model-parallel M the ranks
+form N / M data ways x M model ways and the large dense layers are split
+Megatron-style over each model group (parallel/tensor.py). Rank 0 alone
+writes checkpoints (the one-device model's, gathered), logs and the results.
+--num-workers, --prefetch-factor and --compile are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -42,6 +44,12 @@ from ..train.engine import (
 )
 from ..train.state import beta_at_epoch, cosine_annealing, make_optimizer, make_schedule
 from ..parallel.mesh import DataMesh
+from ..parallel.tensor import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_optimizer_state,
+    load_full_state_dict,
+)
 from ..utils.checkpoint import clean_state_dict, load_checkpoint, save_reference_checkpoint
 from ..utils.resume import latest_step, restore_train_state, save_train_state
 from ._common import (
@@ -50,6 +58,7 @@ from ._common import (
     epoch_index_batches,
     kernel_launches,
     note_ignored_flags,
+    place_model,
     prebuild_kernels,
     profile_epoch,
     resolve_images,
@@ -66,12 +75,24 @@ def run_training(args) -> dict:
     """Train as the flags say; with --num-devices N > 1 on N spawned ranks,
     returning rank 0's result."""
     device = resolve_run_device(args)
-    return run_data_parallel(_train, args, device) or _train(None, device, args)
+    return (run_data_parallel(_train, args, device, lambda: _model(args, "cpu"))
+            or _train(None, device, args))
+
+
+def _model(args, device) -> RVAE:
+    return RVAE(
+        latent_dim=args.latent_dim,
+        patch_size=args.patch_size,
+        compute_dtype=None if args.no_amp else "bfloat16",
+        fast_resample=not args.exact_resample,
+        device=device,
+        generator=stream_generator(args.seed, "init", 0, "cpu"),
+    )
 
 
 def _train(mesh: DataMesh | None, device, args) -> dict:
-    lead = mesh is None or mesh.rank == 0  # the rank that writes
-    n_ranks = 1 if mesh is None else mesh.size
+    lead = mesh is None or mesh.world_rank == 0  # the rank that writes
+    n_ranks = 1 if mesh is None else mesh.size  # the data ways
     note_ignored_flags(args)
     kernel_build_s = prebuild_kernels(device)
     images = resolve_images(args)
@@ -92,14 +113,7 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
     train_idx, val_idx = split_indices(n, args.val_split, seed=args.seed)
     print(f"Dataset: {n} sites ({len(train_idx)} train / {len(val_idx)} val)")
 
-    model = RVAE(
-        latent_dim=args.latent_dim,
-        patch_size=args.patch_size,
-        compute_dtype=None if args.no_amp else "bfloat16",
-        fast_resample=not args.exact_resample,
-        device=device,
-        generator=stream_generator(args.seed, "init", 0, "cpu"),
-    )
+    model = _model(args, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"RVAE: {n_params / 1e6:.2f}M parameters")
 
@@ -107,6 +121,7 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
         stn_state = clean_state_dict(load_checkpoint(args.stn_checkpoint)["rotation_stn"])
         model.encoder.rotation_stn.load_state_dict(stn_state, strict=True)
         print(f"Loaded pretrained STN from {args.stn_checkpoint}")
+    place_model(model, mesh)  # before the optimizer, which must hold the split layers
 
     steps_per_epoch = max(1, len(train_idx) // args.batch_size)
     lr = cosine_annealing(args.lr, args.epochs * steps_per_epoch)
@@ -171,14 +186,14 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
                     f"{meta['seed']}; pass the original seed to resume "
                     "deterministically"
                 )
-            model.load_state_dict(state["model"], strict=True)
-            optimizer.load_state_dict(state["optimizer"])
+            load_full_state_dict(model, state["model"], mesh)
+            load_full_optimizer_state(optimizer, state["optimizer"], mesh)
             scheduler.load_state_dict(state["scheduler"])
             start_epoch = int(meta.get("epoch", -1)) + 1
             best_val = float(meta.get("best_val", float("inf")))
             print(f"Resumed from {resume_dir} at epoch {start_epoch}")
             if show_digest:
-                resumed_digest = state_digest(model, optimizer, scheduler)
+                resumed_digest = state_digest(model, optimizer, scheduler, mesh)
                 print(f"PARAMHASH resumed {resumed_digest}", flush=True)
         else:
             print(f"--resume: no checkpoint in {resume_dir}; starting fresh")
@@ -221,7 +236,7 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
 
         digest = None
         if show_digest:
-            digest = state_digest(model, optimizer, scheduler)
+            digest = state_digest(model, optimizer, scheduler, mesh)
             print(f"PARAMHASH epoch {epoch} {digest}", flush=True)
 
         metrics = epoch_logger.get_averages()
@@ -251,33 +266,39 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
             log_scalar_metrics_tensorboard(writer, metrics, epoch)
             writer.add_scalar("train/beta", beta, epoch)
             writer.add_scalar("train/patches_per_sec", pps, epoch)
-            if (epoch + 1) % args.vis_every == 0:
-                vis_gen = stream_generator(args.seed, "vis", epoch, device)
-                x, _, _ = dataset.batch_at(val_idx[: args.vis_samples], vis_gen)
-                with torch.no_grad():
-                    rotated_recon, canonical, _, _, _, canonical_input = model.train_forward(
-                        x, generator=vis_gen
-                    )
+        if not args.no_tensorboard and (epoch + 1) % args.vis_every == 0:
+            # every rank runs the forward: a split layer needs its whole model group
+            vis_gen = stream_generator(args.seed, "vis", epoch, device)
+            x, _, _ = dataset.batch_at(val_idx[: args.vis_samples], vis_gen)
+            with torch.no_grad():
+                rotated_recon, canonical, _, _, _, canonical_input = model.train_forward(
+                    x, generator=vis_gen
+                )
+            if writer is not None:
                 log_reconstructions_tensorboard(
                     writer, x, rotated_recon, epoch,
                     canonical=canonical, canonical_input=canonical_input,
                 )
 
-        if lead and (args.resume or args.checkpoint_every):
+        # the one-device state: under a model axis every rank gathers, rank 0 writes
+        model_state = full_state_dict(model, mesh)
+        if args.resume or args.checkpoint_every:
             if args.checkpoint_every == 0 or (epoch + 1) % max(args.checkpoint_every, 1) == 0:
-                save_train_state(
-                    resume_dir, epoch,
-                    {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                     "scheduler": scheduler.state_dict()},
-                    {"epoch": epoch, "best_val": best_val, "seed": args.seed},
-                )
+                optimizer_state = full_optimizer_state(optimizer, mesh)
+                if lead:
+                    save_train_state(
+                        resume_dir, epoch,
+                        {"model": model_state, "optimizer": optimizer_state,
+                         "scheduler": scheduler.state_dict()},
+                        {"epoch": epoch, "best_val": best_val, "seed": args.seed},
+                    )
 
         val_loss = val_metrics.get("val_loss", float("inf"))
         if val_loss < best_val:
             best_val = val_loss
             if lead:
                 save_reference_checkpoint(
-                    args.checkpoint, model.state_dict(), epoch=epoch, best_val=best_val,
+                    args.checkpoint, model_state, epoch=epoch, best_val=best_val,
                     args=ckpt_args,
                 )
                 print(f"  -> saved best checkpoint ({args.checkpoint})")
@@ -289,9 +310,10 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
 
     # failsafe final checkpoint
     final_path = str(Path(args.checkpoint).with_suffix("")) + "_final.pt"
+    model_state = full_state_dict(model, mesh)
     if lead:
         save_reference_checkpoint(
-            final_path, model.state_dict(), epoch=args.epochs - 1, best_val=best_val,
+            final_path, model_state, epoch=args.epochs - 1, best_val=best_val,
             args=ckpt_args,
         )
     wall = time.time() - t_start
@@ -344,8 +366,8 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--grad-max-norm", type=float, default=None)
     add_device_flags(
         parser,
-        "Tensor-parallel ways for the large dense layers; only 1 is supported "
-        "(tensor parallelism is ROADMAP item 21)",
+        "Megatron-style tensor-parallel ways for the large dense layers "
+        "(must divide --num-devices)",
     )
     parser.add_argument("--log-dir", type=str, default="runs/rvae")
     parser.add_argument("--no-tensorboard", action="store_true")

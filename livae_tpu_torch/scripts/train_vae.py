@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Train the plain VAE baseline on atom patches, on one GPU or data-parallel
-over several (--num-devices, as in train_rvae).
+over several (--num-devices, --model-parallel, as in train_rvae).
 
 Run as  python -m livae_tpu_torch.scripts.train_vae --synthetic 2 ...
 
@@ -33,6 +33,7 @@ from ..train.engine import (
 )
 from ..train.state import cosine_warm_restarts, make_optimizer, make_schedule
 from ..parallel.mesh import DataMesh
+from ..parallel.tensor import full_state_dict
 from ..utils.checkpoint import save_reference_checkpoint
 from ._common import (
     add_data_flags,
@@ -40,6 +41,7 @@ from ._common import (
     epoch_index_batches,
     kernel_launches,
     note_ignored_flags,
+    place_model,
     prebuild_kernels,
     resolve_images,
     resolve_run_device,
@@ -54,12 +56,23 @@ def run_training(args) -> dict:
     """Train as the flags say; with --num-devices N > 1 on N spawned ranks,
     returning rank 0's result."""
     device = resolve_run_device(args)
-    return run_data_parallel(_train, args, device) or _train(None, device, args)
+    return (run_data_parallel(_train, args, device, lambda: _model(args, "cpu"))
+            or _train(None, device, args))
+
+
+def _model(args, device) -> VAE:
+    return VAE(
+        latent_dim=args.latent_dim,
+        patch_size=args.patch_size,
+        compute_dtype=None if args.no_amp else "bfloat16",
+        device=device,
+        generator=stream_generator(args.seed, "init", 0, "cpu"),
+    )
 
 
 def _train(mesh: DataMesh | None, device, args) -> dict:
-    lead = mesh is None or mesh.rank == 0  # the rank that writes
-    n_ranks = 1 if mesh is None else mesh.size
+    lead = mesh is None or mesh.world_rank == 0  # the rank that writes
+    n_ranks = 1 if mesh is None else mesh.size  # the data ways
     note_ignored_flags(args)
     kernel_build_s = prebuild_kernels(device)
     images = resolve_images(args)
@@ -80,15 +93,10 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
     train_idx, val_idx = split_indices(n, args.val_split, seed=args.seed)
     print(f"Dataset: {n} sites ({len(train_idx)} train / {len(val_idx)} val)")
 
-    model = VAE(
-        latent_dim=args.latent_dim,
-        patch_size=args.patch_size,
-        compute_dtype=None if args.no_amp else "bfloat16",
-        device=device,
-        generator=stream_generator(args.seed, "init", 0, "cpu"),
-    )
+    model = _model(args, device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"VAE: {n_params / 1e6:.2f}M parameters")
+    place_model(model, mesh)  # before the optimizer, which must hold the split layers
 
     steps_per_epoch = max(1, len(train_idx) // args.batch_size)
     lr = cosine_warm_restarts(
@@ -176,27 +184,32 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
         if writer is not None:
             log_scalar_metrics_tensorboard(writer, metrics, epoch)
             writer.add_scalar("train/beta", beta, epoch)
-            if (epoch + 1) % args.vis_every == 0:
-                vis_gen = stream_generator(args.seed, "vis", epoch, device)
-                x = dataset.batch_at(val_idx[: args.vis_samples])
-                with torch.no_grad():
-                    recon, _, _ = model(x, generator=vis_gen)
+        if not args.no_tensorboard and (epoch + 1) % args.vis_every == 0:
+            # every rank runs the forward: a split layer needs its whole model group
+            vis_gen = stream_generator(args.seed, "vis", epoch, device)
+            x = dataset.batch_at(val_idx[: args.vis_samples])
+            with torch.no_grad():
+                recon, _, _ = model(x, generator=vis_gen)
+            if writer is not None:
                 log_reconstructions_tensorboard(writer, x, recon, epoch)
 
+        # the one-device state: under a model axis every rank gathers, rank 0 writes
+        model_state = full_state_dict(model, mesh)
         val_loss = val_metrics.get("val_loss", float("inf"))
         if val_loss < best_val:
             best_val = val_loss
             if lead:
                 save_reference_checkpoint(
-                    args.checkpoint, model.state_dict(), epoch=epoch, best_val=best_val,
+                    args.checkpoint, model_state, epoch=epoch, best_val=best_val,
                     args=ckpt_args,
                 )
                 print(f"  -> saved best checkpoint ({args.checkpoint})")
 
     final_path = str(Path(args.checkpoint).with_suffix("")) + "_final.pt"
+    model_state = full_state_dict(model, mesh)
     if lead:
         save_reference_checkpoint(
-            final_path, model.state_dict(), epoch=args.epochs - 1, best_val=best_val,
+            final_path, model_state, epoch=args.epochs - 1, best_val=best_val,
             args=ckpt_args,
         )
     wall = time.time() - t_start
@@ -237,8 +250,8 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     add_device_flags(
         parser,
-        "Tensor-parallel ways for the large dense layers; only 1 is supported "
-        "(tensor parallelism is ROADMAP item 21)",
+        "Megatron-style tensor-parallel ways for the large dense layers "
+        "(must divide --num-devices)",
     )
     parser.add_argument("--log-dir", type=str, default="runs/vae")
     parser.add_argument("--no-tensorboard", action="store_true")

@@ -19,11 +19,14 @@ The host-loop trainers (`train_one_epoch`, `evaluate`, `train_rvae_one_epoch`,
 `iter_epoch`), with batch i's noise drawn from a generator seeded from
 (seed, i), and put the epoch's means into a MetricLogger.
 
-Data parallelism: the fused steps and evals take `mesh=` (a
+Data and tensor parallelism: the fused steps and evals take `mesh=` (a
 `parallel.DataMesh`, one rank per device). Each rank draws the global batch's
-augmentation and noise and keeps its rows, the train steps run the loss
-through DistributedDataParallel, and the metrics are those of the global
-batch (parallel/mesh.py).
+augmentation and noise and keeps its data index's rows, the train steps run
+the loss through DistributedDataParallel over the data group, and the
+metrics are those of the global batch (parallel/mesh.py). A model placed
+with `parallel.place_with_specs` holds slices of its large dense layers; the
+clip then takes the norm of the whole model: the split gradients' squares
+summed over the model group, the replicated ones counted once.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..losses import rotation_diversity_loss, rvae_loss, vae_loss
 from ..metrics import compute_psnr, compute_ssim, latent_stats, psnr, ssim
 from ..ops.resample import rotate_image_fast
 from ..parallel.mesh import DataMesh, all_reduce_mean, gather_rows, shard_batch
+from ..parallel.tensor import is_model_sharded
 
 __all__ = [
     "FUSED_METRIC_NAMES",
@@ -118,10 +122,23 @@ def _on_device(model: torch.nn.Module, device) -> torch.device:
     return dev
 
 
-def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                         sharded: list[bool] | None = None,
+                         mesh: DataMesh | None = None) -> torch.Tensor:
     """Scale grads in place by min(1, max_norm / max(gnorm, 1e-12)); return
-    min(gnorm, max_norm), the JAX package's formula (no 1e-6 added)."""
-    gnorm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    min(gnorm, max_norm), the JAX package's formula (no 1e-6 added). Under a
+    model axis gnorm is the whole model's: the squares of the grads that
+    `sharded` marks are summed over the model group."""
+    if mesh is None or mesh.model_size == 1:
+        gnorm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    else:
+        def sum_sq(split: bool) -> torch.Tensor:
+            return torch.stack([torch.sum(g * g) for g, s in zip(grads, sharded)
+                                if s == split] or [grads[0].new_zeros(())]).sum()
+
+        split = sum_sq(True)
+        dist.all_reduce(split, group=mesh.model_group)
+        gnorm = torch.sqrt(sum_sq(False) + split)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     for g in grads:
         g.mul_(scale)
@@ -185,15 +202,17 @@ class _Objective(torch.nn.Module):
 
 def _objective(model, loss, mesh: DataMesh | None):
     """loss(model, *args) as a callable. Under a mesh it runs through
-    DistributedDataParallel, which broadcasts rank 0's weights once and
-    averages the gradients over the ranks in the backward."""
-    if mesh is None:
+    DistributedDataParallel over the data group, which broadcasts the
+    group's first weights once and averages the gradients over the group in
+    the backward; a 2-D mesh of one data way has nothing to average."""
+    if mesh is None or (mesh.size == 1 and mesh.model_size > 1):
         return functools.partial(loss, model)
     from torch.nn.parallel import DistributedDataParallel
 
     dev = next(model.parameters()).device
     return DistributedDataParallel(
-        _Objective(model, loss), device_ids=[dev] if dev.type == "cuda" else None)
+        _Objective(model, loss), device_ids=[dev] if dev.type == "cuda" else None,
+        process_group=mesh.data_group)
 
 
 def _latent_dim(model) -> int:
@@ -220,9 +239,10 @@ def _global_draws(B: int, cfg, generator, dev, draws, eps, latent_dim: int,
 
 def _global_std(sums: list[torch.Tensor], n: int, mesh: DataMesh) -> torch.Tensor:
     """The sum over steps of theta's std (Bessel) over each step's global batch
-    of n, from each rank's per-step [sum, sum of squares] in float64."""
+    of n, from each data index's per-step [sum, sum of squares] in float64."""
     s = torch.stack(sums)
-    dist.all_reduce(s)
+    if mesh.size > 1:
+        dist.all_reduce(s, group=mesh.data_group)
     var = (s[:, 1] - s[:, 0] ** 2 / n) / (n - 1)
     return torch.sqrt(torch.clamp(var, min=0.0)).sum().float()
 
@@ -232,15 +252,17 @@ def _theta_sums(theta: torch.Tensor) -> torch.Tensor:
     return torch.stack([t.sum(), (t * t).sum()])
 
 
-def _update(model, optimizer, total, grad_max_norm, scheduler=None) -> torch.Tensor:
+def _update(model, optimizer, total, grad_max_norm, scheduler=None,
+            mesh: DataMesh | None = None) -> torch.Tensor:
     """Backward, global-norm clip over every parameter of the model (also those
     the optimizer does not hold, a frozen STN's), optimizer step, then one step
     of the schedule; returns the reported norm."""
     for p in model.parameters():
         p.grad = None
     total.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    gnorm = _clip_by_global_norm(grads, grad_max_norm)
+    held = [p for p in model.parameters() if p.grad is not None]
+    gnorm = _clip_by_global_norm([p.grad for p in held], grad_max_norm,
+                                 [is_model_sharded(p) for p in held], mesh)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
@@ -387,7 +409,7 @@ def make_fused_rvae_train_step(model, optimizer, *, patch_size: int, padding: in
                     margin=margin, normalize=normalize, rot_dtype=rot_dtype,
                 )
             total, aux = objective(x, x_rot, angle, beta, gamma, e, generator)
-            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
+            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler, mesh)
             with torch.no_grad():
                 if mesh is None:
                     theta_std = torch.std(aux["theta"])
@@ -440,7 +462,7 @@ def make_fused_vae_train_step(model, optimizer, *, patch_size: int, padding: int
                 x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
                                   normalize=normalize, margin=margin, cfg=cfg, draws=d)
             total, aux = objective(x, beta, gamma, e, generator)
-            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler)
+            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler, mesh)
             with torch.no_grad():
                 acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], gnorm]).detach()
         return dict(zip(FUSED_VAE_METRIC_NAMES, all_reduce_mean(acc, mesh) / len(idx_batches)))

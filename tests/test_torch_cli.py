@@ -149,23 +149,72 @@ def test_freeze_stn_leaves_the_stns_bits(tmp_path):
 @pytest.mark.parametrize("flags", [["--num-devices", "2"], ["--model-parallel", "2"],
                                    ["--num-devices", "4", "--model-parallel", "2"]])
 @pytest.mark.parametrize("script", [train_rvae, train_vae], ids=["rvae", "vae"])
-def test_more_than_one_device_exits_with_the_roadmap_item(tmp_path, script, flags):
-    """`--num-devices 2` trains on 2 gloo ranks (data parallelism, ROADMAP item
-    15, is ported); tensor parallelism (`--model-parallel 2`) exits naming its
-    item, 21."""
+def test_devices_and_model_parallel_train_or_exit_as_jax(tmp_path, capfd, script, flags):
+    """`--num-devices 2` trains on 2 gloo ranks (data parallelism);
+    `--model-parallel 2` alone exits as the JAX trainers do (1 device is not
+    divisible by 2 model ways); `--num-devices 4 --model-parallel 2` trains on
+    a 2x2 mesh with the large dense layers split (the val set's 118 sites
+    leave a ragged tail that every rank runs whole): its train loss within
+    rel 1e-4 of one device, and its `_final` checkpoint loads into the port
+    and through the JAX loader with `args.model_parallel == 2`."""
     ckpt = tmp_path / "m.pt"
-    args = script.build_argparser().parse_args(
-        [*SMALL, *flags, "--epochs", "1", "--val-split", "0.2", "--checkpoint", str(ckpt)])
-    if "--model-parallel" in flags:
-        with pytest.raises(SystemExit, match="ROADMAP queue 1, item 21"):
+    common = [*SMALL, "--epochs", "1", "--val-split", "0.2"]
+    args = script.build_argparser().parse_args([*common, *flags, "--checkpoint", str(ckpt)])
+    if flags == ["--model-parallel", "2"]:
+        with pytest.raises(SystemExit,
+                           match="--num-devices 1 must be divisible by --model-parallel 2"):
             script.run_training(args)
         return
     out = script.run_training(args)
+    printed = capfd.readouterr().out
     assert len(out["epochs"]) == 1
     assert all(np.isfinite(v) for k, v in out["epochs"][0]["metrics"].items()
                if k.startswith("train_"))
-    assert ckpt.exists() and ckpt.with_name("m_final.pt").exists()
+    final = ckpt.with_name("m_final.pt")
+    assert ckpt.exists() and final.exists()
     assert sorted(p.name for p in tmp_path.iterdir()) == ["m.pt", "m_final.pt"]
+    if "--model-parallel" not in flags:
+        return
+    n_split = 5 if script is train_rvae else 4  # the STN's first dense layer too
+    assert f"2-D mesh: 2 data x 2 model {{'data': 2, 'model': 2}}; {n_split} model-sharded" \
+        in printed
+    assert out["sites"][2] % 64 and out["epochs"][0]["val_batches"] == 2  # a ragged tail
+    one = script.run_training(script.build_argparser().parse_args(
+        [*common, "--checkpoint", str(tmp_path / "one" / "m.pt")]))
+    np.testing.assert_allclose(out["epochs"][0]["metrics"]["train_loss"],
+                               one["epochs"][0]["metrics"]["train_loss"], rtol=1e-4)
+    # the file holds the one-device model: it loads into the port and through JAX's loader
+    state, payload = tc.load_reference_checkpoint(final)
+    assert payload["args"]["model_parallel"] == 2 and payload["args"]["num_devices"] == "4"
+    fresh = (RVAE if script is train_rvae else VAE)(8, 1, 32, device="cpu")
+    fresh.load_state_dict(state, strict=True)
+    assert isinstance(out["model"].decoder.fc, torch.nn.Linear)  # gathered back
+    for k, v in out["model"].state_dict().items():
+        assert torch.equal(v, state[k]), k
+    scripts_dir = str(REPO / "scripts")
+    sys.path.insert(0, scripts_dir)
+    try:
+        from visualizations import load_model_from_checkpoint
+
+        *_, is_rvae, _, _, jpayload = load_model_from_checkpoint(str(final))
+        assert is_rvae == (script is train_rvae)
+        assert jpayload["args"]["model_parallel"] == 2
+    finally:
+        sys.path.remove(scripts_dir)
+
+
+def test_train_vae_pure_tensor_parallel(tmp_path, capfd):
+    """`train_vae --num-devices 2 --model-parallel 2`: one data way and two
+    model ways (JAX's tests/test_scripts.py:151-166): it prints the JAX line
+    and writes its checkpoint."""
+    ckpt = tmp_path / "vae_mp.pt"
+    args = train_vae.build_argparser().parse_args(
+        [*SMALL, "--epochs", "1", "--num-devices", "2", "--model-parallel", "2",
+         "--checkpoint", str(ckpt)])
+    out = train_vae.run_training(args)
+    assert "2-D mesh: 1 data x 2 model" in capfd.readouterr().out
+    assert ckpt.exists() and ckpt.with_name("vae_mp_final.pt").exists()
+    assert np.isfinite(out["epochs"][0]["metrics"]["train_loss"])
 
 
 def test_auto_devices_and_ignored_flags(tmp_path, capsys):

@@ -20,11 +20,6 @@ import livae_tpu_torch
 LEFT_OUT = {
     "TrainState": "a flax PyTreeNode; the port's state is the module and its optimizer",
     "init_params": "a jitted flax init; the port's models initialise in their constructor",
-    # tensor parallelism: ROADMAP item 21
-    "make_mesh2d": "tensor parallelism, ROADMAP item 21",
-    "dense_param_specs": "tensor parallelism, ROADMAP item 21",
-    "place_with_specs": "tensor parallelism, ROADMAP item 21",
-    "tp_boundary": "tensor parallelism, ROADMAP item 21",
     # GSPMD placement: the port's ranks are processes and its steps take `mesh=`
     "make_mesh": "a jax Mesh of devices; the port's ranks are processes (parallel.spawn)",
     "replicate": "GSPMD placement; DistributedDataParallel broadcasts rank 0's weights",

@@ -238,8 +238,8 @@ def test_resolve_num_devices_auto_on_cards(monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (("2", 1, 15, "cpu"), "--batch-size 15 must be divisible"),
     (("3", 1, 16, "cuda"), "Requested 3 devices but only 2 available"),
-    (("1", 2, 16, "cpu"), "item 21"),
-    (("4", 2, 16, "cuda"), "item 21"),
+    (("1", 2, 16, "cpu"), "--num-devices 1 must be divisible by --model-parallel 2"),
+    (("4", 2, 16, "cuda"), "Requested 4 devices but only 2 available"),
 ])
 def test_setup_mesh_exits(monkeypatch, flags, match):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
@@ -249,9 +249,9 @@ def test_setup_mesh_exits(monkeypatch, flags, match):
 
 def test_setup_mesh_counts_the_ranks(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert pm.setup_mesh_from_flags("1", 1, 15, "cpu") == 1  # no mesh: any batch
+    assert pm.setup_mesh_from_flags("1", 1, 15, "cpu") == (1, 1)  # no mesh: any batch
     assert capsys.readouterr().out == ""
-    assert pm.setup_mesh_from_flags("auto", 1, 16, "cuda") == 2
+    assert pm.setup_mesh_from_flags("auto", 1, 16, "cuda") == (2, 1)
     assert "Data-parallel mesh: 2 cuda ranks" in capsys.readouterr().out
 
 
