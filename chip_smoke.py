@@ -22,7 +22,16 @@ Run from the repository root:  python3 chip_smoke.py
      130, 255, 432, 640 and 1024 and [3, 33, 130]; the dx-free backward gives
      d delta's bits; times in f32 and bf16 on both axes under rotation and
      random shifts, with the launch plan, blocks per SM, share of the bound
-     and a copy_ of the same bytes beside each.
+     and a copy_ of the same bytes beside each;
+   * upconv (ops/csrc/upconv.cu): the decoder stage's epilogue and its adjoint
+     (U) at the four stages' shapes of batch 512 and the STN blocks' phase max
+     and its routing (P) at [1024, 64 | 128, 64 | 32, 64 | 32], and at edge
+     shapes (n = 2, C_out = 1, rectangular, one-pixel maps), in bf16 and f32
+     with TF32 off, against the plain versions and autograd through them
+     (forwards, g_y and the routing bit-equal; a tie-heavy case for P); the
+     whole fused stage and block against the unfused chains in f32; times in
+     bf16 beside the plain versions, the unfused chain and the whole fused
+     stage or block; one stage's and one block's launches both ways.
 4. Agreement phase: the f32 model on the card (kernels) against the same
    weights on the CPU (plain versions, which tests/test_torch_*.py hold
    against the JAX package) on a small batch.
@@ -31,7 +40,10 @@ Run from the repository root:  python3 chip_smoke.py
    (AdamW 1e-3, weight decay 1e-5, beta = gamma = 10, canonical weight 0.2,
    clip 20), each followed by the fused eval over 2 val batches, then a fused
    encode. Every train step must launch the rot3 forward 3 times, its
-   backward twice, and no shear kernel.
+   backward twice, no shear kernel, the upconv epilogue 4 times each way
+   (one per decoder stage) and the phase max twice each way (one per STN
+   block); each eval batch the forwards of the same, each encode batch one
+   rot3 forward and the two phase maxes.
 6. Rotation paths: `rotate_image_fast(backend="shear")` against "fused" on
    [512, 1, 128, 128] (canvas 256) in f32 and bf16, and both backends timed
    in f32, forward and forward+backward; a [64, 3, 128, 128]
@@ -128,13 +140,18 @@ Run from the repository root:  python3 chip_smoke.py
    encode stacked --steps 2` as a process (its report printed), then
    `profile_components --reps 3` in this process.
 Around each driven path the launch counters are zeroed just before and read
-just after (a sweep's processes report their own). A `phase_seconds` line
+just after (a sweep's processes report their own); every RVAE decoder pass
+adds 4 upconv launches each way, every STN localisation pass 2 phase-max
+launches each way. A `phase_seconds` line
 gives each phase's wall-clock seconds. The build step prints each kernel's registers and spills (ptxas);
 the rot3 phase prints each cluster size's time, shared memory per block,
 resident clusters and share of the bound. Then it prints one
 {"kernels": [...]} line (kernel C's figures are f32 along axis 2 with the
 shifts of real rotations, the per-shear path's case; "cases" holds the
-others) and, last, the
+others; the upconv kernels' figures are bf16 and sum one decoder or
+localisation pass, beside the whole fused stage or block, `stage_ms`, and the
+unfused chain it replaces, `unfused_ms`; "cases" holds each stage and block)
+and, last, the
 {"ok": true, "device": {...}} line.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -158,6 +175,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from livae_tpu_torch import bench_rotate
 from livae_tpu_torch.data.datasets import (
@@ -168,11 +186,12 @@ from livae_tpu_torch.data.datasets import (
 )
 from livae_tpu_torch.data.pipeline import PairedDraws, sample_paired_draws
 from livae_tpu_torch.data.synthetic import synthetic_mos2_frame
-from livae_tpu_torch.models.rvae import RVAE
+from livae_tpu_torch.models.rvae import RVAE, _reflect_pad1, _upsample2x
 from livae_tpu_torch.models.vae import VAE
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
 from livae_tpu_torch.ops import shear as SH
+from livae_tpu_torch.ops import upconv as UP
 from livae_tpu_torch.ops.fft import (
     bandpass_filter,
     fft_spectra,
@@ -231,7 +250,8 @@ FRAMES = ["--synthetic", "2", "--synthetic-size", "1024"]
 CLI_DATA = [*FRAMES, "--val-split", "0.25", "--no-tensorboard"]
 ANALYSIS_BATCH, INVARIANCE_PROBES, ROTATION_PROBES = 256, 32, 64  # the scripts' defaults
 PRETRAIN_EPOCHS = 2
-NO_LAUNCH = {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0}
+NO_LAUNCH = {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0,
+             "upconv_fwd": 0, "upconv_bwd": 0, "phasemax_fwd": 0, "phasemax_bwd": 0}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -243,11 +263,41 @@ def check(ok: bool, what: str) -> None:
 
 def zero_counts() -> None:
     R.FWD_LAUNCHES = R.BWD_LAUNCHES = SH.FWD_LAUNCHES = SH.BWD_LAUNCHES = 0
+    UP.UP_FWD_LAUNCHES = UP.UP_BWD_LAUNCHES = UP.PMAX_FWD_LAUNCHES = UP.PMAX_BWD_LAUNCHES = 0
 
 
 def counts() -> dict[str, int]:
     return {"rot3_fwd": R.FWD_LAUNCHES, "rot3_bwd": R.BWD_LAUNCHES,
-            "shear_fwd": SH.FWD_LAUNCHES, "shear_bwd": SH.BWD_LAUNCHES}
+            "shear_fwd": SH.FWD_LAUNCHES, "shear_bwd": SH.BWD_LAUNCHES,
+            "upconv_fwd": UP.UP_FWD_LAUNCHES, "upconv_bwd": UP.UP_BWD_LAUNCHES,
+            "phasemax_fwd": UP.PMAX_FWD_LAUNCHES, "phasemax_bwd": UP.PMAX_BWD_LAUNCHES}
+
+
+def rvae(decode: int = 0, decode_bwd: int = 0, localize: int = 0, localize_bwd: int = 0,
+         **rot3) -> dict[str, int]:
+    """The launches of an RVAE's passes: each decoder forward launches the
+    upconv epilogue 4 times (one per stage) and each backward 4 times; each STN
+    localisation pass (one batch, or the paired [2B] one) launches the phase
+    max twice (one per block), each backward twice; plus the rot3 counts given."""
+    return {"upconv_fwd": 4 * decode, "upconv_bwd": 4 * decode_bwd,
+            "phasemax_fwd": 2 * localize, "phasemax_bwd": 2 * localize_bwd, **rot3}
+
+
+# per fused paired train step (the extraction's rotation, the STN's and the inverse
+# one, two backward; one decoder and one paired localisation pass, each backward),
+# per fused paired eval batch, and per encode batch (the STN's rotation)
+PAIRED_STEP = rvae(1, 1, 1, 1, rot3_fwd=3, rot3_bwd=2)
+PAIRED_EVAL = rvae(1, 0, 1, 0, rot3_fwd=3)
+ENCODE_BATCH = rvae(0, 0, 1, 0, rot3_fwd=1)
+
+
+def launches_of(*terms) -> dict[str, int]:
+    """NO_LAUNCH plus n times the counts of `per` for each (per, n) in terms."""
+    out = dict(NO_LAUNCH)
+    for per, n in terms:
+        for k, v in per.items():
+            out[k] += n * v
+    return out
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 3, inner: int = 10) -> float:
@@ -525,6 +575,331 @@ def shear_kernel_phase():
     return err, ms, bound, cases
 
 
+# The decoder stages and STN blocks of the main path (batch 512, patch 128):
+# (B, Cin, H, W, Cout) of the four FusedUpConv and the two FusedConvPool calls
+# (the localisation runs on the [2B] pair), and edge shapes: n = 2 (every line
+# an edge line), C_out = 1, rectangular, one-pixel outputs.
+UP_STAGES = [(BATCH, 256, 8, 8, 128), (BATCH, 128, 16, 16, 64), (BATCH, 64, 32, 32, 32),
+             (BATCH, 32, 64, 64, 1)]
+UP_EDGE = [(3, 8, 2, 2, 4), (3, 4, 5, 7, 1), (2, 6, 2, 9, 3)]
+PMAX_BLOCKS = [(2 * BATCH, 1, PATCH, PATCH, 16), (2 * BATCH, 16, PATCH // 2, PATCH // 2, 32)]
+PMAX_EDGE = [(3, 1, 4, 4, 1), (3, 3, 4, 12, 4), (2, 2, 2, 2, 3)]
+# one rounding of the output's scale: the forwards are built to be bit-equal,
+# the backwards' sums of a few terms round once more or less
+ULP = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-20}
+
+
+def _err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _scale(t) -> float:
+    return max(1.0, t.float().abs().max().item())
+
+
+def _sum_tol(ref, g) -> float:
+    """A bias gradient's tolerance: it sums the same cotangents as the plain
+    version in another order, in f32 (1e-7 of their absolute sum), then rounds
+    once to the I/O type."""
+    return ULP[ref.dtype] * _scale(ref) + 1e-7 * g.float().abs().sum().item()
+
+
+def _upconv_errors(B, C, H, W, relu, dtype, gen):
+    """The U kernels against the plain epilogue and autograd through it, on
+    random phase maps and projected lines: errors and tolerances."""
+    dev = gen.device
+
+    def rnd(*shape, s=1.0):
+        return (s * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+
+    y, qr, qc = rnd(B, 4 * C, H, W), rnd(B, 6 * C, 2, W, s=0.3), rnd(B, 6 * C, H, 2, s=0.3)
+    bias, g = rnd(1, C), rnd(B, C, 2 * H, 2 * W)
+    out = UP._launch_upconv_fwd(y, qr, qc, bias, relu)
+    ins = [t.clone().requires_grad_(True) for t in (y, qr, qc, bias)]
+    ref = UP.upconv_epilogue_reference(*ins, relu)
+    gref = torch.autograd.grad(ref, ins, g)
+    gy, gqr, gqc = UP._launch_upconv_bwd(g, out if relu else None)
+    ins_k = [t.clone().requires_grad_(True) for t in (y, qr, qc, bias)]
+    gk = torch.autograd.grad(UP.UpconvFunction.apply(*ins_k, relu), ins_k, g)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(gk[:3], (gy, gqr, gqc))),
+          f"UpconvFunction's backward is not the kernel's at {[B, C, H, W]} {dtype}")
+    e = {"fwd": _err(out, ref), "gy": _err(gy, gref[0]), "gqr": _err(gqr, gref[1]),
+         "gqc": _err(gqc, gref[2]), "gbias": _err(gk[3], gref[3])}
+    u = ULP[dtype]
+    # the forward and g_y are held bit-equal (the kernel does the plain
+    # version's f32 operations in its order); g_qr and g_qc sum up to six
+    # cotangents in another order (one rounding to the I/O type)
+    tol = {"fwd": 0.0, "gy": 0.0, "gqr": u * _scale(gref[1]),
+           "gqc": u * _scale(gref[2]), "gbias": _sum_tol(gref[3], g)}
+    return e, tol
+
+
+def _pmax_errors(B, C, h, w, dtype, gen, ties: bool):
+    """The P kernels against the plain phase max, its routing and autograd
+    through it. `ties`: small integers and a zero bias, so that phases tie and
+    relu's floor is hit often."""
+    dev = gen.device
+    if ties:
+        y = torch.randint(-2, 3, (B, 4 * C, h, w), device=dev, generator=gen).to(dtype)
+        bias = torch.zeros((1, C), device=dev, dtype=dtype)
+    else:
+        y = torch.randn((B, 4 * C, h, w), device=dev, generator=gen).to(dtype)
+        bias = torch.randn((1, C), device=dev, generator=gen).to(dtype)
+    g = torch.randn((B, C, h, w), device=dev, generator=gen).to(dtype)
+    out, win = UP._launch_pmax_fwd(y, bias)
+    ref, win_ref = UP.phase_max_reference(y, bias)
+    gy = UP._launch_pmax_bwd(g, win)
+    ins = [t.clone().requires_grad_(True) for t in (y, bias)]
+    gk = torch.autograd.grad(UP.PhaseMaxFunction.apply(*ins)[0], ins, g)
+    ins_r = [t.clone().requires_grad_(True) for t in (y, bias)]
+    gr = torch.autograd.grad(UP.phase_max_reference(*ins_r)[0], ins_r, g)
+    torch.cuda.synchronize()
+    check(torch.equal(gk[0], gy),
+          f"PhaseMaxFunction's backward is not the kernel's at {[B, C, h, w]}")
+    e = {"fwd": _err(out, ref), "win": int((win != win_ref).sum().item()),
+         "gy": _err(gy, UP.phase_max_vjp_reference(g, win_ref)), "gy_autograd": _err(gy, gr[0]),
+         "gbias": _err(gk[1], gr[1])}
+    tol = {"fwd": 0.0, "win": 0, "gy": 0.0, "gy_autograd": 0.0, "gbias": _sum_tol(gr[1], g)}
+    return e, tol
+
+
+def _old_stage(x, w, b, relu):
+    """The decoder stage as the port computed it before: the upsample and pad as
+    slices and two-tap sums, then cuDNN's 3x3 convolution."""
+    h = F.conv2d(_reflect_pad1(_upsample2x(x)), w, b)
+    return F.relu(h) if relu else h
+
+
+def _old_block(x, k5, b):
+    return F.relu(F.max_pool2d(F.conv2d(x, k5, b, padding=2), 2))
+
+
+def _stage_errors(B, Cin, H, W, C, gen, block: bool):
+    """The whole fused stage (or block) through the kernels against the unfused
+    chain in f32 with TF32 off: the outputs, then the gradients (x, w, b), all
+    within 1e-4 of each one's scale (the convolutions sum in other orders;
+    3e-4 for the weights' and bias's long sums). The gradients are taken
+    where the two agree on every discrete choice: the stage without its ReLU,
+    the block's chain before its ReLU read at the fused block's live winning
+    phases (f32 outputs a few ulps apart near 0 or near a tie would else route
+    a cotangent to another place)."""
+    dev = gen.device
+    k = 5 if block else 3
+    x = torch.randn((B, Cin, H, W), device=dev, generator=gen)
+    w = torch.randn((C, Cin, k, k), device=dev, generator=gen) / math.sqrt(Cin * k * k)
+    b = 0.1 * torch.randn((C,), device=dev, generator=gen)
+    ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    ins_r = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    if block:
+        y = F.conv2d(UP.space_to_depth2(ins[0]), UP.phase_gather_5to3(ins[1]), padding=1)
+        out, win = UP.PhaseMaxFunction.apply(y, ins[2][None])
+        errs = [_err(out, _old_block(x, w, b))]
+        fine = F.conv2d(ins_r[0], ins_r[1], ins_r[2], padding=2)  # the ReLU is the mask
+        fine = fine.view(B, C, H // 2, 2, W // 2, 2).permute(0, 1, 2, 4, 3, 5).flatten(-2)
+        live = win != 255
+        ref = fine.gather(-1, torch.where(live, win, 0).long()[..., None])[..., 0] * live
+    else:
+        with torch.no_grad():
+            errs = [_err(UP.fused_upsample_reflect_conv(x, w, b, relu=True),
+                         _old_stage(x, w, b, True)),  # the JAX package's assembly too
+                    _err(UP.fused_upsample_reflect_conv_reference(x, w, b),
+                         _old_stage(x, w, b, False))]
+        out, ref = UP.fused_upsample_reflect_conv(*ins), _old_stage(*ins_r, False)
+    g = torch.randn(ref.shape, device=dev, generator=gen)
+    got, want = torch.autograd.grad(out, ins, g), torch.autograd.grad(ref, ins_r, g)
+    errs += [_err(out, ref)] + [_err(a, c) for a, c in zip(got, want)]
+    # dw and db sum up to 8M products in the orders cuDNN's algorithms pick
+    # (sqrt(8M) * 2^-24 is 1.7e-4 of their scale): 3e-4 of it
+    tols = [1e-4 * _scale(ref)] * (len(errs) - 2) + [3e-4 * _scale(c) for c in want[1:]]
+    return errs, tols
+
+
+def _bytes(kind: str, shape, elem: int, relu: bool = True) -> int:
+    """The bytes a kernel must move: each input it reads read once, each output
+    written once. upconv_fwd reads half of qr [B, 6C, 2, W] and qc [B, 6C, H, 2]
+    (each side's projections on its own pair of lines: B 6C (H + W) entries);
+    upconv_bwd reads the saved output only where the stage has a ReLU, and
+    writes the whole of g_qr and g_qc (zeros in the unused half, which the edge
+    convolutions' backward reads)."""
+    B, _, H, W, C = shape
+    if kind == "upconv_fwd":  # y, the used half of qr and qc, bias in; out
+        return elem * (2 * B * 4 * C * H * W + B * 6 * C * (H + W) + C)
+    if kind == "upconv_bwd":  # g, out (the ReLU's mask, if any) in; g_y, g_qr, g_qc
+        return elem * ((3 if relu else 2) * B * 4 * C * H * W + B * 12 * C * (H + W))
+    h, w = H // 2, W // 2
+    if kind == "phasemax_fwd":  # y, bias in; out and the uint8 winner map
+        return elem * (B * 4 * C * h * w + C + B * C * h * w) + B * C * h * w
+    return elem * (B * C * h * w + B * 4 * C * h * w) + B * C * h * w  # g, win in; g_y
+
+
+def _launch_count(fn) -> int:
+    """Kernels fn launches on the card, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
+
+
+def upconv_kernel_phase():
+    """Hold the four kernels of ops/csrc/upconv.cu against their plain versions
+    at every shape the main path gives them and at edge shapes, in bf16 and in
+    f32 (TF32 off); the fused stage and block against the unfused chains in
+    f32; then time each kernel at the main path's shapes in bf16 beside its
+    plain version, the unfused chain it replaces and the whole fused stage, and
+    count one stage's launches both ways."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    err = {k: 0.0 for k in ("upconv_fwd", "upconv_bwd", "phasemax_fwd", "phasemax_bwd")}
+    for i, (B, _, H, W, C) in enumerate(UP_STAGES + UP_EDGE):
+        for dtype in (torch.bfloat16, torch.float32):
+            for r in ((True, False) if i >= len(UP_STAGES) else (i < len(UP_STAGES) - 1,)):
+                e, tol = _upconv_errors(B, C, H, W, r, dtype, gen)
+                what = f"[{B}, {4 * C}, {H}, {W}] {str(dtype)[6:]} relu {r}"
+                print(f"upconv {what}: " + ", ".join(
+                    f"{k} {e[k]:.3e} (tol {tol[k]:.1e})" for k in e))
+                for k in e:
+                    check(e[k] <= tol[k], f"upconv {k} {what}: {e[k]} > {tol[k]}")
+                err["upconv_fwd"] = max(err["upconv_fwd"], e["fwd"])
+                err["upconv_bwd"] = max(err["upconv_bwd"], e["gy"], e["gqr"], e["gqc"])
+    for B, _, H, W, C in PMAX_BLOCKS + PMAX_EDGE:
+        for dtype in (torch.bfloat16, torch.float32):
+            for ties in (False, True):
+                e, tol = _pmax_errors(B, C, H // 2, W // 2, dtype, gen, ties)
+                what = f"[{B}, {4 * C}, {H // 2}, {W // 2}] {str(dtype)[6:]} ties {ties}"
+                print(f"phasemax {what}: " + ", ".join(f"{k} {e[k]:.3e} (tol {tol[k]:.1e})"
+                                                       for k in e))
+                for k in e:
+                    check(e[k] <= tol[k], f"phasemax {k} {what}: {e[k]} > {tol[k]}")
+                err["phasemax_fwd"] = max(err["phasemax_fwd"], e["fwd"])
+                err["phasemax_bwd"] = max(err["phasemax_bwd"], e["gy"])
+    for shape, block in [(s, False) for s in UP_STAGES + UP_EDGE] + \
+                        [(s, True) for s in PMAX_BLOCKS + PMAX_EDGE]:
+        errs, tols = _stage_errors(*shape, gen, block)
+        names = (["out", "out at the winners"] if block else
+                 ["out with ReLU", "JAX assembly", "out"]) + ["dx", "dw", "db"]
+        print(f"{'block' if block else 'stage'} {list(shape)} f32 fused vs unfused chain: "
+              + ", ".join(f"{n} {a:.3e} (tol {t:.1e})" for n, a, t in zip(names, errs, tols)))
+        check(all(a <= t for a, t in zip(errs, tols)), f"fused {shape} disagrees with the chain")
+
+    # times in bf16 at the main path's shapes; the line's figures sum the
+    # launches of one decoder pass (four stages) or localisation pass (two blocks)
+    torch.backends.cudnn.allow_tf32 = True
+    bf = torch.bfloat16
+    cases = {k: [] for k in err}
+    for i, (B, Cin, H, W, C) in enumerate(UP_STAGES):
+        relu = i < len(UP_STAGES) - 1
+        x = torch.randn((B, Cin, H, W), device=dev, generator=gen).to(bf)
+        w = (torch.randn((C, Cin, 3, 3), device=dev, generator=gen) / math.sqrt(9 * Cin)).to(bf)
+        b = (0.1 * torch.randn((C,), device=dev, generator=gen)).to(bf)
+        y = F.conv2d(x, UP.phase_kernel(w), padding=1)
+        qr = torch.randn((B, 6 * C, 2, W), device=dev, generator=gen).to(bf)
+        qc = torch.randn((B, 6 * C, H, 2), device=dev, generator=gen).to(bf)
+        bias = b[None]
+        out = UP._launch_upconv_fwd(y, qr, qc, bias, relu)
+        g = torch.randn(out.shape, device=dev, generator=gen).to(bf)
+        ins = [t.clone().requires_grad_(True) for t in (y, qr, qc, bias)]
+        ref = UP.upconv_epilogue_reference(*ins, relu)
+        xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        old, new = _old_stage(*xs, relu), UP.fused_upsample_reflect_conv(*xs, relu=relu)
+        fwd = {"ms": median_ms(lambda: UP._launch_upconv_fwd(y, qr, qc, bias, relu)),
+               "plain_ms": median_ms(lambda: UP.upconv_epilogue_reference(y, qr, qc, bias, relu),
+                                     reps=3),
+               "unfused_ms": median_ms(lambda: _old_stage(x, w, b, relu)),
+               "stage_ms": median_ms(lambda: UP.fused_upsample_reflect_conv(x, w, b, relu))}
+        bwd = {"ms": median_ms(lambda: UP._launch_upconv_bwd(g, out if relu else None)),
+               "plain_ms": median_ms(lambda: torch.autograd.grad(ref, ins, g, retain_graph=True),
+                                     reps=3),
+               "unfused_ms": median_ms(lambda: torch.autograd.grad(old, xs, g, retain_graph=True)),
+               "stage_ms": median_ms(lambda: torch.autograd.grad(new, xs, g, retain_graph=True))}
+        for k, d in (("upconv_fwd", fwd), ("upconv_bwd", bwd)):
+            d.update(shape=[B, Cin, H, W, C], relu=relu,
+                     bound_ms=_bytes(k, (B, Cin, H, W, C), 2, relu) / HBM_BYTES_PER_S * 1e3)
+            cases[k].append(d)
+            print(f"{k} bf16 stage {i} [{B}, {Cin}, {H}, {W}] -> {C}: kernel {d['ms']:.4f} ms, "
+                  f"bound {d['bound_ms']:.4f} ms ({100 * d['bound_ms'] / d['ms']:.1f} %), plain "
+                  f"{d['plain_ms']:.4f} ms; the whole stage fused {d['stage_ms']:.4f} ms, "
+                  f"unfused {d['unfused_ms']:.4f} ms")
+    for i, (B, Cin, H, W, C) in enumerate(PMAX_BLOCKS):
+        x = torch.randn((B, Cin, H, W), device=dev, generator=gen).to(bf)
+        k5 = (torch.randn((C, Cin, 5, 5), device=dev, generator=gen) / math.sqrt(25 * Cin)).to(bf)
+        b = (0.1 * torch.randn((C,), device=dev, generator=gen)).to(bf)
+        y = F.conv2d(UP.space_to_depth2(x), UP.phase_gather_5to3(k5), padding=1)
+        bias = b[None]
+        out, win = UP._launch_pmax_fwd(y, bias)
+        g = torch.randn(out.shape, device=dev, generator=gen).to(bf)
+        ins = [t.clone().requires_grad_(True) for t in (y, bias)]
+        ref = UP.phase_max_reference(*ins)[0]
+        # the main path's first block sees data (no input gradient), the second a map
+        xs = [t.clone().requires_grad_(i > 0 or j > 0) for j, t in enumerate((x, k5, b))]
+        need = [t for t in xs if t.requires_grad]
+        old, new = _old_block(*xs), UP.fused_conv5_relu_maxpool(*xs)
+        fwd = {"ms": median_ms(lambda: UP._launch_pmax_fwd(y, bias)),
+               "plain_ms": median_ms(lambda: UP.phase_max_reference(y, bias), reps=3),
+               "unfused_ms": median_ms(lambda: _old_block(x, k5, b)),
+               "stage_ms": median_ms(lambda: UP.fused_conv5_relu_maxpool(x, k5, b))}
+        bwd = {"ms": median_ms(lambda: UP._launch_pmax_bwd(g, win)),
+               "plain_ms": median_ms(lambda: torch.autograd.grad(ref, ins, g, retain_graph=True),
+                                     reps=3),
+               "unfused_ms": median_ms(lambda: torch.autograd.grad(old, need, g,
+                                                                   retain_graph=True)),
+               "stage_ms": median_ms(lambda: torch.autograd.grad(new, need, g,
+                                                                 retain_graph=True))}
+        for k, d in (("phasemax_fwd", fwd), ("phasemax_bwd", bwd)):
+            d.update(shape=[B, Cin, H, W, C], bound_ms=_bytes(k, (B, Cin, H, W, C), 2)
+                     / HBM_BYTES_PER_S * 1e3)
+            cases[k].append(d)
+            print(f"{k} bf16 block {i} [{B}, {Cin}, {H}, {W}] -> {C}: kernel {d['ms']:.4f} ms, "
+                  f"bound {d['bound_ms']:.4f} ms ({100 * d['bound_ms'] / d['ms']:.1f} %), plain "
+                  f"{d['plain_ms']:.4f} ms; the whole block fused {d['stage_ms']:.4f} ms, "
+                  f"unfused {d['unfused_ms']:.4f} ms")
+
+    # one decoder stage's (stage 1) and STN block's (block 1) launches, both ways
+    B, Cin, H, W, C = UP_STAGES[1]
+    x = torch.randn((B, Cin, H, W), device=dev, generator=gen).to(bf).requires_grad_(True)
+    w = (0.05 * torch.randn((C, Cin, 3, 3), device=dev, generator=gen)).requires_grad_(True)
+    b = torch.zeros((C,), device=dev, requires_grad=True)
+    B2, Cin2, H2, W2, C2 = PMAX_BLOCKS[1]
+    x2 = torch.randn((B2, Cin2, H2, W2), device=dev, generator=gen).to(bf).requires_grad_(True)
+    k2 = (0.05 * torch.randn((C2, Cin2, 5, 5), device=dev, generator=gen)).requires_grad_(True)
+    b2 = torch.zeros((C2,), device=dev, requires_grad=True)
+
+    def stage(fused, backward):  # as the model runs it: the weights cast to bf16 first
+        def run():
+            wc, bc = w.to(bf), b.to(bf)
+            out = (UP.fused_upsample_reflect_conv(x, wc, bc, relu=True) if fused else
+                   _old_stage(x, wc, bc, True))
+            if backward:
+                out.float().sum().backward()
+        return run
+
+    def block(fused, backward):
+        def run():
+            kc, bc = k2.to(bf), b2.to(bf)
+            out = UP.fused_conv5_relu_maxpool(x2, kc, bc) if fused else _old_block(x2, kc, bc)
+            if backward:
+                out.float().sum().backward()
+        return run
+
+    launches = {f"{what}_{way}_{d}": _launch_count(fn(way == "fused", d == "fwd_bwd"))
+                for what, fn in (("stage", stage), ("block", block))
+                for way in ("unfused", "fused") for d in ("fwd", "fwd_bwd")}
+    print("launches of one decoder stage (stage 1) and STN block (block 1), bf16: "
+          + json.dumps(launches))
+    check(launches["stage_fused_fwd"] < launches["stage_unfused_fwd"],
+          f"the fused stage's forward launches {launches['stage_fused_fwd']} kernels, the "
+          f"unfused {launches['stage_unfused_fwd']}")
+    ms = {k: sum(c["ms"] for c in v) for k, v in cases.items()}
+    return {"err": err, "ms": ms, "cases": cases,
+            "launches_per_call": launches}
+
+
 def agreement_phase():
     """f32 model on the card vs the same weights on the CPU, small batch."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -579,18 +954,20 @@ def main_path(ds, build_s: float):
     for e in range(EPOCHS):
         idx = torch.randint(0, n, (STEPS_PER_EPOCH, BATCH), generator=gen, device="cuda")
         vidx = torch.randint(0, n, (VAL_BATCHES, BATCH), generator=gen, device="cuda")
-        f0, b0 = R.FWD_LAUNCHES, R.BWD_LAUNCHES
+        c0 = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tm = metrics_to_host(step(frames_padded, img_idx, coords, idx, gen, 10.0, 10.0))
         t1 = time.perf_counter()
-        f1, b1 = R.FWD_LAUNCHES, R.BWD_LAUNCHES
+        c1 = counts()
         vm = metrics_to_host(evaluate(frames_padded, img_idx, coords, vidx, gen, 10.0, 10.0))
         t2 = time.perf_counter()
-        check(f1 - f0 == 3 * STEPS_PER_EPOCH and b1 - b0 == 2 * STEPS_PER_EPOCH,
-              f"train launches fwd {f1 - f0} bwd {b1 - b0} for {STEPS_PER_EPOCH} steps")
-        check(R.FWD_LAUNCHES - f1 == 3 * VAL_BATCHES and R.BWD_LAUNCHES == b1,
-              "eval launches")
+        c2 = counts()
+        got = {k: c1[k] - c0[k] for k in c0}
+        check(got == launches_of((PAIRED_STEP, STEPS_PER_EPOCH)),
+              f"train launches {got} for {STEPS_PER_EPOCH} steps")
+        got = {k: c2[k] - c1[k] for k in c0}
+        check(got == launches_of((PAIRED_EVAL, VAL_BATCHES)), f"eval launches {got}")
         for name, v in list(tm.items()) + list(vm.items()):
             check(bool(np.isfinite(v).all()), f"epoch {e} metric {name} not finite")
         epochs.append(dict(train_s=t1 - t0, eval_s=t2 - t1,
@@ -612,9 +989,8 @@ def main_path(ds, build_s: float):
     check(bool(torch.isfinite(mu).all() and torch.isfinite(logvar).all()
                and torch.isfinite(theta).all()), "encode outputs not finite")
     steps = EPOCHS * STEPS_PER_EPOCH
-    check(launches["rot3_fwd"] == 3 * steps + 3 * EPOCHS * VAL_BATCHES + 2 * ENCODE_STEPS
-          and launches["rot3_bwd"] == 2 * steps
-          and launches["shear_fwd"] == launches["shear_bwd"] == 0,
+    check(launches == launches_of((PAIRED_STEP, steps), (PAIRED_EVAL, EPOCHS * VAL_BATCHES),
+                                  (ENCODE_BATCH, 2 * ENCODE_STEPS)),
           f"main path launches {launches}")
 
     last = epochs[-1]
@@ -650,9 +1026,8 @@ def rotation_path_phase():
             grad[backend] = torch.autograd.grad(out[backend].float().square().sum(), t)[0]
             torch.cuda.synchronize()
             got = counts()
-            want = ({"rot3_fwd": 1, "rot3_bwd": 1, "shear_fwd": 0, "shear_bwd": 0}
-                    if backend == "fused" else
-                    {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 3, "shear_bwd": 3})
+            want = ({**NO_LAUNCH, "rot3_fwd": 1, "rot3_bwd": 1} if backend == "fused" else
+                    {**NO_LAUNCH, "shear_fwd": 3, "shear_bwd": 3})
             check(got == want, f"rotate_image_fast({backend}) {dtype} launches {got}")
             for k in launches:
                 launches[k] += got[k]
@@ -717,7 +1092,8 @@ def exact_train_phase(ds):
     tm = metrics_to_host(step(frames_padded, img_idx, coords, idx, gen, 10.0, 10.0))
     dt = time.perf_counter() - t0
     got = counts()
-    check(got == {"rot3_fwd": EXACT_STEPS, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0},
+    # the extraction's rotation only; the decoder and the localisation as ever
+    check(got == launches_of((rvae(1, 1, 1, 1, rot3_fwd=1), EXACT_STEPS)),
           f"exact-resample train launches {got}")
     for name, v in tm.items():
         check(bool(np.isfinite(v).all()), f"exact-resample metric {name} not finite")
@@ -812,8 +1188,8 @@ def train_rvae_phase(tmp: Path):
         canvas += 2 * (canvas // 6)
         check((canvas,) * 2 == SHAPE[1:] and (n_val % BATCH, canvas, canvas) in PATH_SHAPES,
               f"the kernel phase did not hold rot3 at the tail's {[n_val % BATCH, canvas, canvas]}")
-        rot3_only = dict(per_step={"rot3_fwd": 3, "rot3_bwd": 2}, per_val_batch={"rot3_fwd": 3})
-        _check_epochs(out, "train_rvae", **rot3_only)
+        paired = dict(per_step=PAIRED_STEP, per_val_batch=PAIRED_EVAL)
+        _check_epochs(out, "train_rvae", **paired)
         check(len(out["epochs"]) == 3 and [e["beta"] for e in out["epochs"]] == [0.0, 0.0, 5.0],
               f"train_rvae betas {[e['beta'] for e in out['epochs']]}")
         check(launches == {k: sum(e["launches"][k] for e in out["epochs"]) for k in launches},
@@ -865,7 +1241,7 @@ def train_rvae_phase(tmp: Path):
               f"restored digest {resumed['resumed_digest']}, epoch 2 printed "
               f"{out['epochs'][2]['digest']}")
         check(resumed["sites"] == out["sites"], "the resumed run built another site table")
-        _check_epochs(resumed, "train_rvae --resume", **rot3_only)
+        _check_epochs(resumed, "train_rvae --resume", **paired)
         check(resumed["epochs"][0]["beta"] == 10.0, f"resumed beta {resumed['epochs'][0]['beta']}")
         check(r_launches == resumed["epochs"][0]["launches"], f"resumed launches {r_launches}")
     finally:
@@ -1009,9 +1385,10 @@ def analysis_phase(tmp: Path, final: Path):
                               [*FRAMES, "--checkpoint", str(final)])
     torch.cuda.synchronize()
     launches = counts()
-    # 2 rot3 forwards per batch (the STN's rotation and the inverse rotation),
-    # 3 for check_invariance (the rot90 of the probes and two encodes)
-    want = {**NO_LAUNCH, "rot3_fwd": 2 * 2 * nb + 3}
+    # per batch a forward: 2 rot3 forwards (the STN's rotation and the inverse
+    # rotation), a decoder and a localisation pass; check_invariance: 3 rot3
+    # forwards (the rot90 of the probes and two encodes) and two localisations
+    want = launches_of((rvae(1, 0, 1, 0, rot3_fwd=2), 2 * nb), (rvae(0, 0, 2, 0, rot3_fwd=3), 1))
     check(launches == want, f"analysis launches {launches}, expected {want}")
     check(mu.shape == (n, LATENT) and logvar.shape == (n, LATENT) and rec_err.shape == (n,)
           and len(idx_map) == n, "collect_stats shapes")
@@ -1120,8 +1497,8 @@ def rotation_invariance_phase(final: Path, ds):
     dt = time.perf_counter() - t0  # ends in the host read of the metrics
     launches = counts()
     # per angle: the probes' rotation, the STN's and the inverse rotation, the
-    # rotation back
-    want_launches = {**NO_LAUNCH, "rot3_fwd": 4 * 8}
+    # rotation back; a forward (a decoder and a localisation pass)
+    want_launches = launches_of((rvae(1, 0, 1, 0, rot3_fwd=4), 8))
     check(launches == want_launches, f"rotation invariance launches {launches}")
     want = evaluate_rotation_invariance(cpu_model, probes.cpu(), eps=eps)
     # 2e-4 absolute for each metric, as for the model: the angle error wraps
@@ -1158,12 +1535,15 @@ def pretrain_stn_phase(tmp: Path):
     check(n_val % BATCH and (n_val % BATCH, *SHAPE[1:]) in PATH_SHAPES,
           f"the kernel phase did not hold rot3 at the pretraining's val tail {n_val % BATCH}")
     # one rot3 forward per batch (the paired extraction's rotation); the
-    # localisation net neither rotates nor differentiates a rotation
+    # localisation net neither rotates nor differentiates a rotation; one paired
+    # localisation pass per batch, its backward per train step
     for e in out["epochs"]:
         check(e["steps"] == n_train // BATCH and e["val_batches"] == -(-n_val // BATCH),
               f"pretrain_stn epoch {e['epoch']} batches {e['steps']} / {e['val_batches']}")
-        check(e["launches"] == {**NO_LAUNCH, "rot3_fwd": e["steps"] + e["val_batches"]},
-              f"pretrain_stn epoch {e['epoch']} launches {e['launches']}")
+        want = launches_of((rvae(0, 0, 1, 1, rot3_fwd=1), e["steps"]),
+                           (rvae(0, 0, 1, 0, rot3_fwd=1), e["val_batches"]))
+        check(e["launches"] == want, f"pretrain_stn epoch {e['epoch']} launches {e['launches']}, "
+                                     f"expected {want}")
         check(math.isfinite(e["train_loss"]) and math.isfinite(e["val_loss"]),
               f"pretrain_stn epoch {e['epoch']} losses {e['train_loss']}, {e['val_loss']}")
     check(launches == {k: sum(e["launches"][k] for e in out["epochs"]) for k in launches},
@@ -1175,22 +1555,22 @@ def pretrain_stn_phase(tmp: Path):
           and payload["best_val"] == out["best_val"], f"STN checkpoint holds {sorted(payload)}")
 
     ckpt = tmp / "rvae_stn" / "rvae_best.pt"
-    rvae, r_launches, printed, _ = run_cli(train_rvae, [*CLI_DATA, "--epochs", "1",
-                                                        "--stn-checkpoint", str(stn_ckpt),
-                                                        "--checkpoint", str(ckpt)])
+    from_stn, r_launches, printed, _ = run_cli(train_rvae, [*CLI_DATA, "--epochs", "1",
+                                                            "--stn-checkpoint", str(stn_ckpt),
+                                                            "--checkpoint", str(ckpt)])
     check(f"Loaded pretrained STN from {stn_ckpt}" in printed, "train_rvae did not load the STN")
-    _check_epochs(rvae, "train_rvae --stn-checkpoint", per_step={"rot3_fwd": 3, "rot3_bwd": 2},
-                  per_val_batch={"rot3_fwd": 3})
+    _check_epochs(from_stn, "train_rvae --stn-checkpoint", per_step=PAIRED_STEP,
+                  per_val_batch=PAIRED_EVAL)
     rates = [{"epoch": e["epoch"], "train_patches_per_s": e["steps"] * BATCH / e["train_s"],
               "eval_s": e["eval_s"]} for e in out["epochs"]]
     print("pretrain_stn: " + ", ".join(
         f"epoch {e['epoch']} train {e['train_loss']:.4f} val {e['val_loss']:.4f}"
         for e in out["epochs"]) + f"; then train_rvae from it: loss "
-        f"{rvae['epochs'][0]['metrics']['train_loss']:.4f}")
+        f"{from_stn['epochs'][0]['metrics']['train_loss']:.4f}")
     return {"sites": list(out["sites"]), "epochs": rates,
             "train_loss": [e["train_loss"] for e in out["epochs"]],
             "val_loss": [e["val_loss"] for e in out["epochs"]], "launches": launches,
-            "train_rvae_from_stn": {"train_loss": rvae["epochs"][0]["metrics"]["train_loss"],
+            "train_rvae_from_stn": {"train_loss": from_stn["epochs"][0]["metrics"]["train_loss"],
                                     "launches": r_launches}}
 
 
@@ -1318,10 +1698,10 @@ def host_loop_phase(ds):
     runs = [
         ("train_rvae_one_epoch", lambda log: train_rvae_one_epoch(
             make_rvae_train_step(model, opt, device="cuda"), _batches(ds, gen, HOST_LOOP_STEPS), 0, log,
-            10.0, 10.0), HOST_LOOP_STEPS, {"rot3_fwd": 3, "rot3_bwd": 2}),
+            10.0, 10.0), HOST_LOOP_STEPS, PAIRED_STEP),
         ("evaluate_rvae", lambda log: evaluate_rvae(
             make_rvae_eval_step(model, device="cuda"), _batches(ds, gen, HOST_LOOP_VAL), 1, log, 10.0, 10.0),
-         HOST_LOOP_VAL, {"rot3_fwd": 3}),
+         HOST_LOOP_VAL, PAIRED_EVAL),
         ("train_one_epoch", lambda log: train_one_epoch(
             make_train_step(vae, vopt, device="cuda"), _batches(patches, gen, HOST_LOOP_STEPS), 2, log),
          HOST_LOOP_STEPS, {"rot3_fwd": 1}),
@@ -1355,8 +1735,10 @@ def host_loop_phase(ds):
 
 SWEEP_DATA = [*FRAMES, "--val-split", "0.25"]
 # per train step of a trial (the fused VAE step on the rVAE: the STN's rotation
-# and the inverse rotation, each backward) and per val batch of its fused eval
-SWEEP_PER_STEP, SWEEP_PER_VAL = {"rot3_fwd": 2, "rot3_bwd": 2}, {"rot3_fwd": 2}
+# and the inverse rotation, each backward; a decoder and a localisation pass,
+# each backward) and per val batch of its fused eval
+SWEEP_PER_STEP = rvae(1, 1, 1, 1, rot3_fwd=2, rot3_bwd=2)
+SWEEP_PER_VAL = rvae(1, 0, 1, 0, rot3_fwd=2)
 SWEEP_RUNS = {
     "asha": ["--num-samples", "4", "--max-concurrent", "2", "--epochs", "3",
              "--grace-period", "1"],
@@ -1468,8 +1850,7 @@ def sweep_phase(tmp: Path, sites):
     torch.cuda.synchronize()
     launches = counts()
     check("Loaded best config from" in printed, "train_rvae_with_best did not read the config")
-    _check_epochs(out, "train_rvae_with_best", per_step={"rot3_fwd": 3, "rot3_bwd": 2},
-                  per_val_batch={"rot3_fwd": 3})
+    _check_epochs(out, "train_rvae_with_best", per_step=PAIRED_STEP, per_val_batch=PAIRED_EVAL)
     check(launches == out["epochs"][0]["launches"], f"with_best launches {launches}")
     state, payload = load_reference_checkpoint(out["final_checkpoint"])
     retrained = RVAE(int(best_cfg["latent_dim"]), 1, PATCH, "bfloat16", device="cuda")
@@ -1648,8 +2029,8 @@ def stacked_phase(tmp: Path, sites):
     trials = out["trials"]
     check(len(trials) == STACK_K and all(t.status == "done" for t in trials),
           f"stacked trials {[t.status for t in trials]}")
-    want = {**NO_LAUNCH, "rot3_fwd": STACK_EPOCHS * (2 * steps + 2 * val_batches),
-            "rot3_bwd": STACK_EPOCHS * 2 * steps}
+    want = launches_of((SWEEP_PER_STEP, STACK_EPOCHS * steps),
+                       (SWEEP_PER_VAL, STACK_EPOCHS * val_batches))
     check(launches == want and out["launches"] == want,
           f"stacked launches {launches}, expected {want} (independent of K)")
     for t in trials:
@@ -1720,8 +2101,9 @@ def compare_phase(tmp: Path):
     cmp, _ = _quiet(compare_vae_rvae.main, [])
     launches = counts()
     # the smoke test's forward and backward, then 3 + 100 timed forwards of the
-    # rVAE: each forward the STN's rotation and the inverse one on [32, 128, 128]
-    want = {**NO_LAUNCH, "rot3_fwd": 2 + 2 * 103, "rot3_bwd": 2}
+    # rVAE: each forward the STN's rotation and the inverse one on [32, 128, 128],
+    # a decoder and a localisation pass
+    want = launches_of((rvae(1, 0, 1, 0, rot3_fwd=2), 104), (rvae(0, 1, 0, 1, rot3_bwd=2), 1))
     check(cmp["ok"] and launches == want, f"compare_vae_rvae {cmp['ok']} launches {launches}")
     result["compare_vae_rvae"] = {k: cmp[k] for k in ("vae_params", "rvae_params", "vae_ms",
                                                       "vae_imgs_per_s", "rvae_ms",
@@ -1737,9 +2119,9 @@ def compare_phase(tmp: Path):
     bs, nb = elbo["batch_size"], elbo["batches"]
     check((bs, *SHAPE[1:]) in PATH_SHAPES, f"the kernel phase did not hold rot3 at [{bs}, 256, 256]")
     steps = 1269 // bs  # the bench frame's 1409 sites, a tenth held out
-    # train: 3 forwards and 2 backwards per step; the eval batches' extraction
-    # 1 forward each, the fast objective 2 more; the exact one none
-    want = {**NO_LAUNCH, "rot3_fwd": 3 * steps + 3 * nb, "rot3_bwd": 2 * steps}
+    # train: paired steps; per eval batch the extraction's rotation and two paired
+    # evals, the fast objective's with 2 rot3 forwards, the exact one's with none
+    want = launches_of((PAIRED_STEP, steps), (rvae(2, 0, 2, 0, rot3_fwd=3), nb))
     check(launches == want, f"compare_resample_elbo launches {launches}, expected {want}")
     check(math.isfinite(elbo["relative_delta"]), f"compare_resample_elbo {elbo}")
     result["compare_resample_elbo"] = {**elbo, "launches": launches}
@@ -1765,9 +2147,10 @@ def compare_phase(tmp: Path):
           and math.isfinite(row["train_loss"]), f"accuracy_program row {row}")
     check((1446 % BATCH, *SHAPE[1:]) in PATH_SHAPES,
           "the kernel phase did not hold rot3 at the held-out frame's tail")
-    # 2 train steps of 3 forwards and 2 backwards per epoch (1433 sites); the
-    # held-out frame's 1446 sites in 3 batches of 2 forwards; 2 probe encodes
-    want = {**NO_LAUNCH, "rot3_fwd": 2 * 2 * 3 + 3 * 2 + 2, "rot3_bwd": 2 * 2 * 2}
+    # 2 paired train steps per epoch (1433 sites); the held-out frame's 1446 sites
+    # in 3 batches of a forward (2 rot3 forwards); 2 probe encodes
+    want = launches_of((PAIRED_STEP, 2 * 2), (rvae(1, 0, 1, 0, rot3_fwd=2), 3),
+                       (ENCODE_BATCH, 2))
     check(launches == want, f"accuracy_program launches {launches}, expected {want}")
     result["accuracy_program"] = {**{k: row[k] for k in ("kld_mean", "rot90_mu_cosine",
                                                           "train_loss", "eval_sites",
@@ -1890,7 +2273,7 @@ def parallel_phase(ds):
           f"{n_max:.3e}, metrics max rel diff {n_diff:.3e} (tol 1e-6), launches "
           f"{nccl['launches']}, {nccl_s:.2f} s")
     check(n_max == 0.0 and n_diff <= 1e-6, "NCCL world-1 steps differ from one process")
-    want = {**NO_LAUNCH, "rot3_fwd": 3 * PARALLEL_STEPS, "rot3_bwd": 2 * PARALLEL_STEPS}
+    want = launches_of((PAIRED_STEP, PARALLEL_STEPS))
     check(nccl["launches"] == want, f"NCCL run launches {nccl['launches']}")
 
     idx, draws, eps = batches(PARALLEL_GLOO_STEPS)
@@ -1908,7 +2291,7 @@ def parallel_phase(ds):
           f"share beyond 1e-5 {w_share:.2e}, rank 0 launches {two['launches']}, {gloo_s:.1f} s")
     check(m_diff <= 1e-5 and w_share < 1e-3 and w_max <= 2 * 1e-3 * PARALLEL_GLOO_STEPS,
           "2 gloo ranks differ from one process")
-    want = {**NO_LAUNCH, "rot3_fwd": 3 * PARALLEL_GLOO_STEPS, "rot3_bwd": 2 * PARALLEL_GLOO_STEPS}
+    want = launches_of((PAIRED_STEP, PARALLEL_GLOO_STEPS))
     check(two["launches"] == want, f"gloo rank 0 launches {two['launches']}")
     torch.backends.cudnn.allow_tf32 = True  # the bf16 paths' setting, as the main path left it
     return {"nccl_world1": {"steps": PARALLEL_STEPS, "weights_max_diff": n_max,
@@ -2062,10 +2445,10 @@ def tensor_parallel_phase(ds):
     check(mu_diff <= 1e-5, f"the gathered state's model encodes {mu_diff} apart")
     check(saved == TP_PARAMS_SAVED and split["params"][0] == split["params"][1],
           f"rank parameters {split['params']} against {one['params'][0]}")
-    want_train = {**NO_LAUNCH, "rot3_fwd": 3 * TP_STEPS, "rot3_bwd": 2 * TP_STEPS}
+    want_train = launches_of((PAIRED_STEP, TP_STEPS))
     check(split["train_launches"] == want_train and one["train_launches"] == want_train,
           f"rank 0 train launches {split['train_launches']}")
-    check(split["eval_launches"] == {**NO_LAUNCH, "rot3_fwd": 3},
+    check(split["eval_launches"] == launches_of((PAIRED_EVAL, 1)),
           f"rank 0 eval launches {split['eval_launches']}")
     launches = {k: split["train_launches"][k] + split["eval_launches"][k] for k in NO_LAUNCH}
     return {"mesh": "1 data x 2 model (gloo, one card)", "steps": TP_STEPS,
@@ -2136,7 +2519,9 @@ def exports_phase():
         total = rvae_loss(rotated_recon, x, mu, logvar)[0]
     got = counts()
     psnr = compute_psnr(rotated_recon, x)
-    check(bool(torch.isfinite(total)) and math.isfinite(psnr) and got["rot3_fwd"] == 2,
+    # a forward: the STN's rotation and the inverse one, a decoder and a localisation pass
+    check(bool(torch.isfinite(total)) and math.isfinite(psnr)
+          and got == launches_of((rvae(1, 0, 1, 0, rot3_fwd=2), 1)),
           f"exports: loss {float(total)}, psnr {psnr}, launches {got}")
     print(f"exports: {len(livae_tpu_torch.__all__)} names; RVAE forward on the card, loss "
           f"{float(total):.4f}, psnr {psnr:.2f} dB, launches {got}")
@@ -2195,6 +2580,8 @@ def main() -> int:
 
     err, ms, bound = timed("kernel", kernel_phase)
     s_err, s_ms, s_bound, s_cases = timed("shear_kernel", shear_kernel_phase)
+    up = timed("upconv_kernel", upconv_kernel_phase)
+    print("upconv_kernels " + json.dumps({"card": smi, **up}))
     timed("agreement", agreement_phase)
     ds, build_s = timed("bench_dataset", bench_dataset)
     main = timed("main_path", main_path, ds, build_s)
@@ -2264,6 +2651,25 @@ def main() -> int:
          "plain_ms": plain, "bound_ms": b, "bound_by": "bytes", "library_ms": None}
         for name, src, replaces, path_launches, path, e, t, plain, b in entries
     ]
+    # the upconv kernels: each figure the sum over one decoder pass's four stages or
+    # one localisation pass's two blocks (bf16, batch 512). library_ms: no single
+    # PyTorch call computes the epilogue (depth-to-space, the edge lines' exact
+    # corrections, bias, ReLU) or relu-and-max over four channel groups with its
+    # first-wins winner map. stage_ms is the whole fused stage or block, unfused_ms
+    # the unfused chain it replaces (upsample, pad, conv, ReLU; conv, pool, ReLU),
+    # both through PyTorch's calls
+    up_src = "livae_tpu_torch/ops/csrc/upconv.cu"
+    for name, replaces in (("upconv_fwd", "livae_tpu/ops/upconv.py:124"),
+                           ("upconv_bwd", "livae_tpu/ops/upconv.py:124"),
+                           ("phasemax_fwd", "livae_tpu/ops/upconv.py:299"),
+                           ("phasemax_bwd", "livae_tpu/ops/upconv.py:299")):
+        cases = up["cases"][name]
+        total = {k: sum(c[k] for c in cases) for k in ("ms", "plain_ms", "bound_ms",
+                                                        "stage_ms", "unfused_ms")}
+        kernels.append({"name": name, "route": "cuda", "source": up_src, "replaces": replaces,
+                        "launches": main["launches"][name], "launches_path": "main",
+                        "max_abs_err": up["err"][name], **total, "bound_by": "bytes",
+                        "library_ms": None, "dtype": "bfloat16", "cases": cases})
     by_path = {"main": main["launches"], "rotation": shear_launches,
                "exact_resample": exact["launches"], "train_rvae": rvae_cli["launches"],
                "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"],
@@ -2284,10 +2690,13 @@ def main() -> int:
         check(k["launches_by_path"]["train_rvae"] > 0, f"train_rvae launched no {k['name']}")
         check(k["launches_by_path"]["tensor_parallel_rank0"] > 0,
               f"the tensor-parallel rank 0 launched no {k['name']}")
-    for k in kernels[2:]:  # kernel C: f32 axis 2 above; every timed case beside it
+    for k in kernels[2:4]:  # kernel C: f32 axis 2 above; every timed case beside it
         d = k["name"][6:]
         k.update(dtype="float32", axis=2, shifts="rotation", cases={
             case: v for case, v in s_cases.items() if case.split()[0] in (d, d + "_nodx")})
+    for k in kernels[4:]:
+        check(k["launches_by_path"]["train_rvae"] > 0 and k["launches_by_path"]["stacked"] > 0,
+              f"train_rvae or the stacked trials launched no {k['name']}")
     check(all(k["launches"] > 0 for k in kernels), "a kernel of its path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

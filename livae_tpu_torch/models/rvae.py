@@ -11,12 +11,13 @@ plain `load_state_dict`:
 * `decoder.fc`, `decoder.deconv_layers.{2,6,10,14}`: four
   Upsample2x -> ReflectionPad(1) -> Conv3x3 stages, then a sigmoid.
 
-The JAX package computes the STN blocks and decoder stages with exact TPU
-rewrites (ops/upconv.py); here they are the plain chains, convolutions on
-cuDNN. The decoder's 2x bilinear upsample and reflection pad are written as
-slices and two-tap sums (`ops.resample.upsample2x_bilinear`, `_reflect_pad1`):
-PyTorch's own NCHW kernels for them took most of a batch-512 train step on
-the H100 (PERF.md).
+As in the JAX package, the STN blocks and the decoder stages compute at half
+resolution (models.layers, ops/upconv.py): each STN block is a `FusedConvPool`
+(one phase convolution and the phase-max kernel) and each decoder stage a
+`FusedUpConv` (one phase convolution and the epilogue kernel, the ReLU fused);
+`nn.Identity` holds the places of the reference's Upsample, ReflectionPad2d,
+MaxPool2d and the blocks' and stages' ReLU entries, so the keys are the
+reference's.
 
 Mixed precision follows the JAX policy (`compute_dtype`): convolutions cast
 input, weight and bias to the compute dtype; the dense layers and the
@@ -45,20 +46,20 @@ from ..ops.resample import (
     rotation_matrix,
     upsample2x_bilinear,
 )
+from .layers import FusedConvPool, FusedUpConv, reflection_pad_1
 from .vae import _conv, _conv_trunk, _dtype, init_torch_default, reparameterize
 
 __all__ = ["RotationSTN", "Encoder", "Decoder", "RVAE", "init_torch_default"]
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """The decoder's 2x bilinear upsample (`ops.resample.upsample2x_bilinear`)."""
+    """The unfused stage's 2x bilinear upsample (`ops.resample.upsample2x_bilinear`)."""
     return upsample2x_bilinear(x)
 
 
 def _reflect_pad1(x: torch.Tensor) -> torch.Tensor:
-    """nn.ReflectionPad2d(1) of [B, C, H, W]."""
-    x = torch.cat([x[:, :, 1:2], x, x[:, :, -2:-1]], 2)
-    return torch.cat([x[..., 1:2], x, x[..., -2:-1]], 3)
+    """nn.ReflectionPad2d(1) of [B, C, H, W] (`layers.reflection_pad_1`)."""
+    return reflection_pad_1(x)
 
 
 class RotationSTN(nn.Module):
@@ -70,13 +71,15 @@ class RotationSTN(nn.Module):
         q = patch_size // 4
         self.compute_dtype = compute_dtype
         self.fast_resample = fast_resample
+        # the Identity entries hold the places of the reference's MaxPool2d and
+        # ReLU (each FusedConvPool applies both), so the keys stay the reference's
         self.localization = nn.Sequential(
-            nn.Conv2d(in_channels, 16, 5, padding=2),
-            nn.MaxPool2d(2),
-            nn.ReLU(),
-            nn.Conv2d(16, 32, 5, padding=2),
-            nn.MaxPool2d(2),
-            nn.ReLU(),
+            FusedConvPool(in_channels, 16, compute_dtype),
+            nn.Identity(),
+            nn.Identity(),
+            FusedConvPool(16, 32, compute_dtype),
+            nn.Identity(),
+            nn.Identity(),
             nn.Flatten(),
             nn.Linear(32 * q * q, 32),
             nn.ReLU(),
@@ -92,11 +95,8 @@ class RotationSTN(nn.Module):
 
     def localize(self, x: torch.Tensor):
         """x [B, C, H, W] -> (cos [B], sin [B], theta [B, 1])."""
-        cd = _dtype(self.compute_dtype)
         loc = self.localization
-        h = F.relu(F.max_pool2d(_conv(loc[0], x, cd), 2))
-        h = F.relu(F.max_pool2d(_conv(loc[3], h, cd), 2))
-        h = h.flatten(1).float()
+        h = loc[3](loc[0](x)).flatten(1).float()  # each: conv, ReLU and pool at once
         vec = loc[9](F.relu(loc[7](h)))
         norm = torch.linalg.vector_norm(vec, dim=1, keepdim=True)
         vec = vec / torch.clamp(norm, min=1e-6)
@@ -177,7 +177,8 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """fc -> 4x [Upsample2x bilinear, ReflectionPad(1), Conv3x3] -> sigmoid."""
+    """fc -> 4x [Upsample2x bilinear, ReflectionPad(1), Conv3x3] -> sigmoid, each
+    stage a `FusedUpConv` (the ReLU after the first three fused into it)."""
 
     def __init__(self, latent_dim: int = 10, out_channels: int = 1, patch_size: int = 64,
                  compute_dtype: str | None = None):
@@ -189,13 +190,12 @@ class Decoder(nn.Module):
         c_in = 256
         widths = (128, 64, 32, out_channels)
         for i, w in enumerate(widths):
-            layers += [
-                nn.Upsample(scale_factor=2, mode="bilinear", align_corners=False),
-                nn.ReflectionPad2d(1),
-                nn.Conv2d(c_in, w, 3),
-            ]
-            if i < len(widths) - 1:
-                layers.append(nn.ReLU())
+            # the Identity entries hold the places of the reference's Upsample,
+            # ReflectionPad2d and ReLU (FusedUpConv applies the ReLU itself)
+            relu = i < len(widths) - 1
+            layers += [nn.Identity(), nn.Identity(), FusedUpConv(c_in, w, relu, compute_dtype)]
+            if relu:
+                layers.append(nn.Identity())
             c_in = w
         layers.append(nn.Sigmoid())
         self.deconv_layers = nn.Sequential(*layers)
@@ -206,9 +206,7 @@ class Decoder(nn.Module):
         if cd is not None:
             h = h.to(cd)
         for i in (2, 6, 10, 14):
-            h = _conv(self.deconv_layers[i], _reflect_pad1(_upsample2x(h)), cd)
-            if i < 14:
-                h = F.relu(h)
+            h = self.deconv_layers[i](h)
         return torch.sigmoid(h.float())
 
 

@@ -1,6 +1,6 @@
-"""Tensor ops of the port: the rot3 and shear kernels, resampling, FFT
+"""Tensor ops of the port: the rot3, shear and upconv kernels, resampling, FFT
 filters, peaks and the lattice."""
 
-from . import fft, lattice, peaks, resample
+from . import fft, lattice, peaks, resample, upconv
 
-__all__ = ["fft", "lattice", "peaks", "resample"]
+__all__ = ["fft", "lattice", "peaks", "resample", "upconv"]

@@ -31,7 +31,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "BUILD_LOG", "build_all", "is_built", "load"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(os.environ.get("LIVAE_TORCH_BUILD_DIR")
                  or Path(__file__).resolve().parent.parent / "_build")
-SOURCES = {"rot3": _CSRC / "rot3.cu", "shear": _CSRC / "shear.cu"}
+SOURCES = {"rot3": _CSRC / "rot3.cu", "shear": _CSRC / "shear.cu", "upconv": _CSRC / "upconv.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -25,7 +25,7 @@ import torch
 from ..data.h5 import load_image_from_h5
 from ..data.synthetic import synthetic_mos2_frame
 from ..device import resolve_device
-from ..ops import rot3, shear
+from ..ops import rot3, shear, upconv
 from ..parallel.mesh import (
     DataMesh,
     dense_param_specs,
@@ -216,7 +216,9 @@ def state_digest(model, optimizer, scheduler=None, mesh: DataMesh | None = None)
 def kernel_launches() -> dict[str, int]:
     """The CUDA kernels' launch counters (0 on the CPU, which launches none)."""
     return {"rot3_fwd": rot3.FWD_LAUNCHES, "rot3_bwd": rot3.BWD_LAUNCHES,
-            "shear_fwd": shear.FWD_LAUNCHES, "shear_bwd": shear.BWD_LAUNCHES}
+            "shear_fwd": shear.FWD_LAUNCHES, "shear_bwd": shear.BWD_LAUNCHES,
+            "upconv_fwd": upconv.UP_FWD_LAUNCHES, "upconv_bwd": upconv.UP_BWD_LAUNCHES,
+            "phasemax_fwd": upconv.PMAX_FWD_LAUNCHES, "phasemax_bwd": upconv.PMAX_BWD_LAUNCHES}
 
 
 def card_description(device: torch.device) -> str:

@@ -26,14 +26,21 @@ LEFT_OUT = {
     "shard_train_step": "a jit with shardings; the port's fused steps take mesh=",
     "shard_eval_step": "a jit with shardings; the port's fused evals take mesh=",
     "fused_epoch_shardings": "jit shardings; the port's fused steps take mesh=",
+    # models.layers' flax wrappers: PyTorch's own layers and init are the port's
+    "Conv": "a flax wrapper for torch-default init; the port uses nn.Conv2d",
+    "ConvTranspose": "a flax wrapper for torch's padding and init; the port uses "
+                     "nn.ConvTranspose2d",
+    "Dense": "a flax wrapper for torch-default init; the port uses nn.Linear",
+    "torch_kernel_init": "flax's PyTorch-default weight init; PyTorch's own layers "
+                         "(models.vae.init_torch_default)",
+    "torch_bias_init": "flax's PyTorch-default bias init; PyTorch's own layers "
+                       "(models.vae.init_torch_default)",
 }
 # the JAX package's modules with no counterpart: the TPU kernels' Pallas
-# bodies (ported as ops/csrc/*.cu behind ops/rot3.py and ops/shear.py), the
-# TPU-form rewrites the North star leaves out, and the orbax resume files
-# (utils/resume.py)
-NOT_PORTED_MODULES = {"livae_tpu.models.layers", "livae_tpu.ops.pallas",
-                      "livae_tpu.ops.pallas.rot3", "livae_tpu.ops.pallas.shear",
-                      "livae_tpu.ops.upconv", "livae_tpu.utils.orbax_io"}
+# bodies (ported as ops/csrc/*.cu behind ops/rot3.py and ops/shear.py) and the
+# orbax resume files (utils/resume.py)
+NOT_PORTED_MODULES = {"livae_tpu.ops.pallas", "livae_tpu.ops.pallas.rot3",
+                      "livae_tpu.ops.pallas.shear", "livae_tpu.utils.orbax_io"}
 SUBPACKAGES = ["data", "models", "ops", "train", "utils", "parallel", "sweep"]
 
 
@@ -107,13 +114,22 @@ def test_upsample2x_bilinear_matches_jax(rng, shape):
     np.testing.assert_allclose(got.transpose(0, 2, 3, 1), want, atol=1e-6)
 
 
-def test_the_decoder_upsamples_through_it(monkeypatch):
-    from livae_tpu_torch.models import rvae
+def test_the_decoder_upsamples_through_it(monkeypatch, rng):
+    """The decoder's four stages run the fused stage (models.layers), which
+    equals upsample2x_bilinear, the reflection pad and the 3x3 convolution."""
+    import torch.nn.functional as F
+
+    from livae_tpu_torch.models import layers, rvae
 
     calls = []
-    real = rvae.upsample2x_bilinear
-    monkeypatch.setattr(rvae, "upsample2x_bilinear", lambda x: calls.append(x.shape) or real(x))
+    real = layers.fused_upsample_reflect_conv
+    monkeypatch.setattr(layers, "fused_upsample_reflect_conv",
+                        lambda x, *a, **k: calls.append(tuple(x.shape)) or real(x, *a, **k))
     model = rvae.RVAE(8, 1, 32, device="cpu")
     with torch.no_grad():
         model.decode(torch.zeros(2, 8))
-    assert len(calls) == 4
+    assert calls == [(2, 256, 2, 2), (2, 128, 4, 4), (2, 64, 8, 8), (2, 32, 16, 16)]
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 3, 3, 3)).astype(np.float32))
+    want = F.conv2d(rvae._reflect_pad1(rvae.upsample2x_bilinear(x)), w)
+    torch.testing.assert_close(real(x, w, None), want, atol=2e-5, rtol=1e-5)

@@ -12,7 +12,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = {"livae_tpu_torch/ops/csrc/rot3.cu", "livae_tpu_torch/ops/csrc/shear.cu",
-           "livae_tpu_torch/ops/csrc/lerp.cuh"}
+           "livae_tpu_torch/ops/csrc/upconv.cu", "livae_tpu_torch/ops/csrc/lerp.cuh"}
 
 
 def test_wheel_carries_the_cuda_sources(tmp_path):

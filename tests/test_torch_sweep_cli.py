@@ -93,7 +93,9 @@ def test_sweep_writes_results_and_best_config(sweep):
         assert payload["args"]["latent_dim"] == 8 and payload["epoch"] == t["epochs"] - 1
     best = json.loads((root / "cli" / "best_config.json").read_text())
     assert best == {k: v for k, v in out["best"].config.items()}
-    assert out["launches"] == {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0}
+    assert out["launches"] == {"rot3_fwd": 0, "rot3_bwd": 0, "shear_fwd": 0, "shear_bwd": 0,
+                               "upconv_fwd": 0, "upconv_bwd": 0, "phasemax_fwd": 0,
+                               "phasemax_bwd": 0}
 
 
 def test_best_config_keys_equal_jax(sweep, tmp_path, monkeypatch):
