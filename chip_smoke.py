@@ -28,13 +28,21 @@ Run from the repository root:  python3 chip_smoke.py
      and its routing (P) at [1024, 64 | 128, 64 | 32, 64 | 32], and at edge
      shapes (n = 2, C_out = 1, rectangular, one-pixel maps), in bf16 and f32
      with TF32 off, against the plain versions and autograd through them
-     (forwards, g_y and the routing bit-equal; a tie-heavy case for P); the
-     whole fused stage and block against the unfused chains in f32; times in
-     bf16 beside the plain versions, the unfused chain and the whole fused
-     stage or block; one stage's and one block's launches both ways.
+     (forwards, g_y and the routing bit-equal; a tie-heavy case for P), the
+     epilogue's forward and the routing also in every variant the shape
+     takes and on views one element (and, for y, 8 bytes) into their
+     storage (the scalar variant, shorter runs); the launch plan's vector
+     variant at every main-path shape; the whole fused stage and block
+     against the unfused chains in f32; times in bf16 beside the plain
+     versions, a copy_ of the same bytes, the unfused chain and the whole
+     fused stage or block, each variant's time, and the last stage's
+     forward with L2 flushed before each call; one stage's and one block's
+     launches both ways.
 4. Agreement phase: the f32 model on the card (kernels) against the same
    weights on the CPU (plain versions, which tests/test_torch_*.py hold
-   against the JAX package) on a small batch.
+   against the JAX package) on a small batch, each output's error printed;
+   and the card's STN rotation by the CPU's theta against the CPU's
+   x_canonical.
 5. Main path: PairedAdaptiveLatticeDataset on the bench frame, RVAE at patch
    128 / latent 16 / bfloat16, 2 epochs of fused paired training at batch 512
    (AdamW 1e-3, weight decay 1e-5, beta = gamma = 10, canonical weight 0.2,
@@ -62,7 +70,9 @@ Run from the repository root:  python3 chip_smoke.py
      schedules'; best and `_final` checkpoints with the payload's five keys;
      a fresh model loaded from `_final` encodes bit-equal. Then `--epochs 4
      --resume`: it starts at epoch 3 from the state whose digest epoch 2
-     printed, with beta 10 and a finite loss;
+     printed, with beta 10 and a finite loss. Then one epoch on the same
+     frames written to .h5 and read with `--data` (where h5py imports) and
+     one with TensorBoard on (where tensorboardX imports), else a skip line;
    * `livae_tpu_torch.scripts.train_vae`, 3 epochs: no kernel launch, finite
      metrics, checkpoints that load strictly.
 8. The analysis path, on train_rvae's `_final` checkpoint and the same two
@@ -142,15 +152,18 @@ Run from the repository root:  python3 chip_smoke.py
 Around each driven path the launch counters are zeroed just before and read
 just after (a sweep's processes report their own); every RVAE decoder pass
 adds 4 upconv launches each way, every STN localisation pass 2 phase-max
-launches each way. A `phase_seconds` line
+launches each way, and on the main path every epilogue forward and routing
+launch takes the vector variant. A `phase_seconds` line
 gives each phase's wall-clock seconds. The build step prints each kernel's registers and spills (ptxas);
 the rot3 phase prints each cluster size's time, shared memory per block,
 resident clusters and share of the bound. Then it prints one
 {"kernels": [...]} line (kernel C's figures are f32 along axis 2 with the
 shifts of real rotations, the per-shear path's case; "cases" holds the
 others; the upconv kernels' figures are bf16 and sum one decoder or
-localisation pass, beside the whole fused stage or block, `stage_ms`, and the
-unfused chain it replaces, `unfused_ms`; "cases" holds each stage and block)
+localisation pass, beside the whole fused stage or block, `stage_ms`, the
+unfused chain it replaces, `unfused_ms`, and a copy_ of the same bytes,
+`copy_ms`; the epilogue's forward and the routing add their plan's `variant`
+and `elems_per_thread`; "cases" holds each stage and block)
 and, last, the
 {"ok": true, "device": {...}} line.
 
@@ -246,7 +259,8 @@ STEPS_PER_EPOCH, EPOCHS, VAL_BATCHES, ENCODE_STEPS = 6, 2, 2, 4
 EXACT_STEPS = 3
 PATCH_DATASET_STEPS = 3
 # the entry points' data: two bench frames, a quarter of the sites held out
-FRAMES = ["--synthetic", "2", "--synthetic-size", "1024"]
+FRAME_SIZE = 1024
+FRAMES = ["--synthetic", "2", "--synthetic-size", str(FRAME_SIZE)]
 CLI_DATA = [*FRAMES, "--val-split", "0.25", "--no-tensorboard"]
 ANALYSIS_BATCH, INVARIANCE_PROBES, ROTATION_PROBES = 256, 32, 64  # the scripts' defaults
 PRETRAIN_EPOCHS = 2
@@ -264,6 +278,7 @@ def check(ok: bool, what: str) -> None:
 def zero_counts() -> None:
     R.FWD_LAUNCHES = R.BWD_LAUNCHES = SH.FWD_LAUNCHES = SH.BWD_LAUNCHES = 0
     UP.UP_FWD_LAUNCHES = UP.UP_BWD_LAUNCHES = UP.PMAX_FWD_LAUNCHES = UP.PMAX_BWD_LAUNCHES = 0
+    UP.VARIANT_LAUNCHES.clear()
 
 
 def counts() -> dict[str, int]:
@@ -300,15 +315,20 @@ def launches_of(*terms) -> dict[str, int]:
     return out
 
 
-def median_ms(fn, reps: int = 7, warmup: int = 3, inner: int = 10) -> float:
+def median_ms(fn, reps: int = 7, warmup: int = 3, inner: int = 10, lead: bool = False) -> float:
     """Median over `reps` CUDA-event windows of the time per call of fn, each
     window `inner` calls back to back (so the host's launch latency overlaps the
-    device's work), after `warmup` calls."""
+    device's work), after `warmup` calls. `lead`: each window opens behind a
+    device-side wait of about 1 ms (torch.cuda._sleep), during which the host
+    enqueues the window's calls, so that a kernel shorter than its wrapper's
+    host time is timed on the device and not at the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if lead:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -578,19 +598,85 @@ def shear_kernel_phase():
 # The decoder stages and STN blocks of the main path (batch 512, patch 128):
 # (B, Cin, H, W, Cout) of the four FusedUpConv and the two FusedConvPool calls
 # (the localisation runs on the [2B] pair), and edge shapes: n = 2 (every line
-# an edge line), C_out = 1, rectangular, one-pixel outputs.
+# an edge line), C_out = 1, rectangular, one-pixel outputs, widths that are no
+# whole number of 16-byte runs (the scalar variant), and runs that are a whole
+# output row or leave one interior run per row (the vector variant).
 UP_STAGES = [(BATCH, 256, 8, 8, 128), (BATCH, 128, 16, 16, 64), (BATCH, 64, 32, 32, 32),
              (BATCH, 32, 64, 64, 1)]
-UP_EDGE = [(3, 8, 2, 2, 4), (3, 4, 5, 7, 1), (2, 6, 2, 9, 3)]
+UP_EDGE = [(3, 8, 2, 2, 4), (3, 4, 5, 7, 1), (2, 6, 2, 9, 3), (2, 4, 3, 4, 2), (2, 3, 4, 12, 2)]
 PMAX_BLOCKS = [(2 * BATCH, 1, PATCH, PATCH, 16), (2 * BATCH, 16, PATCH // 2, PATCH // 2, 32)]
-PMAX_EDGE = [(3, 1, 4, 4, 1), (3, 3, 4, 12, 4), (2, 2, 2, 2, 3)]
+PMAX_EDGE = [(3, 1, 4, 4, 1), (3, 3, 4, 12, 4), (2, 2, 2, 2, 3), (2, 2, 8, 16, 3)]
 # one rounding of the output's scale: the forwards are built to be bit-equal,
 # the backwards' sums of a few terms round once more or less
 ULP = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-20}
+VECTOR_ELEMS = {torch.bfloat16: 8, torch.float32: 4}  # 16 bytes a thread
 
 
 def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def _offset(t: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """A copy of t in a view k elements into its storage, as a slice of a
+    larger tensor is: one element loses every alignment above the element's."""
+    v = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    return v.copy_(t)
+
+
+def _elems_options(kernel: str, dtype) -> tuple:
+    """Elements a thread takes in the scalar variant and in the runs of 16
+    bytes up to RUN_BYTES[kernel] of the vector variant."""
+    n = VECTOR_ELEMS[dtype]
+    return (1,) + tuple(k * n for k in (1, 2, 4) if 16 * k <= UP.RUN_BYTES[kernel])
+
+
+def _plan(kernel: str, *tensors, elems=None):
+    """The launch plan the wrapper makes for these tensors: (y, out) or (g,
+    win, g_y); an output not given is a fresh allocation."""
+    t = tensors[0]
+    if kernel == "upconv_fwd":
+        B, C4, H, W = t.shape
+        shape = (B, C4 // 4, H, W)
+    else:
+        shape = tuple(t.shape)
+    align = [UP.alignment(x) for x in tensors]
+    align += [16] * ((2 if kernel == "upconv_fwd" else 3) - len(align))
+    return UP.launch_plan(kernel, shape, t.dtype, align, elems)
+
+
+def _takes(kernel: str, n: int, *tensors) -> bool:
+    """Whether the kernel takes n elements a thread on these tensors."""
+    try:
+        _plan(kernel, *tensors, elems=n)
+    except ValueError:
+        return False
+    return True
+
+
+def _copy_ms(nbytes: int) -> float:
+    """A copy_ that moves nbytes: nbytes / 2 read and nbytes / 2 written."""
+    src = torch.empty(nbytes // 4, dtype=torch.bfloat16, device="cuda")
+    dst = torch.empty_like(src)
+    return median_ms(lambda: dst.copy_(src), lead=True)
+
+
+def cold_ms(fn, reps: int = 7) -> float:
+    """Median time of one call of fn with L2 flushed before it (a 256 MiB
+    write, five times the H100's 50 MB L2), each call its own CUDA-event
+    window."""
+    flush = torch.empty(2**28, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def _scale(t) -> float:
@@ -606,7 +692,10 @@ def _sum_tol(ref, g) -> float:
 
 def _upconv_errors(B, C, H, W, relu, dtype, gen):
     """The U kernels against the plain epilogue and autograd through it, on
-    random phase maps and projected lines: errors and tolerances."""
+    random phase maps and projected lines: errors, tolerances and the
+    forward's launch plans. The forward also in every variant the shape takes
+    (fwd_variants) and on copies of y one element and 8 bytes into their
+    storage (fwd_offset: the scalar variant, and runs of 16 bytes)."""
     dev = gen.device
 
     def rnd(*shape, s=1.0):
@@ -615,6 +704,11 @@ def _upconv_errors(B, C, H, W, relu, dtype, gen):
     y, qr, qc = rnd(B, 4 * C, H, W), rnd(B, 6 * C, 2, W, s=0.3), rnd(B, 6 * C, H, 2, s=0.3)
     bias, g = rnd(1, C), rnd(B, C, 2 * H, 2 * W)
     out = UP._launch_upconv_fwd(y, qr, qc, bias, relu)
+    outs = [UP._launch_upconv_fwd(y, qr, qc, bias, relu, n)
+            for n in _elems_options("upconv_fwd", dtype)
+            if _takes("upconv_fwd", n, y)]
+    offsets = [_offset(y), _offset(y, 8 // y.element_size())]
+    outs_off = [UP._launch_upconv_fwd(t, qr, qc, bias, relu) for t in offsets]
     ins = [t.clone().requires_grad_(True) for t in (y, qr, qc, bias)]
     ref = UP.upconv_epilogue_reference(*ins, relu)
     gref = torch.autograd.grad(ref, ins, g)
@@ -624,21 +718,28 @@ def _upconv_errors(B, C, H, W, relu, dtype, gen):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(gk[:3], (gy, gqr, gqc))),
           f"UpconvFunction's backward is not the kernel's at {[B, C, H, W]} {dtype}")
-    e = {"fwd": _err(out, ref), "gy": _err(gy, gref[0]), "gqr": _err(gqr, gref[1]),
-         "gqc": _err(gqc, gref[2]), "gbias": _err(gk[3], gref[3])}
+    plans = [_plan("upconv_fwd", t) for t in [y] + offsets]
+    check(plans[1].variant == "scalar", f"y one element into its storage took {plans[1]}")
+    check(plans[2].elems_per_thread in (1, VECTOR_ELEMS[dtype]),
+          f"y 8 bytes into its storage took {plans[2]}")
+    e = {"fwd": _err(out, ref), "fwd_variants": max(_err(o, ref) for o in outs),
+         "fwd_offset": max(_err(o, ref) for o in outs_off), "gy": _err(gy, gref[0]),
+         "gqr": _err(gqr, gref[1]), "gqc": _err(gqc, gref[2]), "gbias": _err(gk[3], gref[3])}
     u = ULP[dtype]
     # the forward and g_y are held bit-equal (the kernel does the plain
     # version's f32 operations in its order); g_qr and g_qc sum up to six
     # cotangents in another order (one rounding to the I/O type)
-    tol = {"fwd": 0.0, "gy": 0.0, "gqr": u * _scale(gref[1]),
+    tol = {"fwd": 0.0, "fwd_variants": 0.0, "fwd_offset": 0.0, "gy": 0.0,
+           "gqr": u * _scale(gref[1]),
            "gqc": u * _scale(gref[2]), "gbias": _sum_tol(gref[3], g)}
-    return e, tol
+    return e, tol, plans
 
 
 def _pmax_errors(B, C, h, w, dtype, gen, ties: bool):
     """The P kernels against the plain phase max, its routing and autograd
-    through it. `ties`: small integers and a zero bias, so that phases tie and
-    relu's floor is hit often."""
+    through it; the routing on misaligned copies of g and win too. `ties`:
+    small integers and a zero bias, so that phases tie and relu's floor is hit
+    often. Errors, tolerances and the routing's launch plans."""
     dev = gen.device
     if ties:
         y = torch.randint(-2, 3, (B, 4 * C, h, w), device=dev, generator=gen).to(dtype)
@@ -650,6 +751,10 @@ def _pmax_errors(B, C, h, w, dtype, gen, ties: bool):
     out, win = UP._launch_pmax_fwd(y, bias)
     ref, win_ref = UP.phase_max_reference(y, bias)
     gy = UP._launch_pmax_bwd(g, win)
+    gys = [UP._launch_pmax_bwd(g, win, n) for n in _elems_options("phasemax_bwd", dtype)
+           if _takes("phasemax_bwd", n, g, win)]
+    g_off, win_off = _offset(g), _offset(win)
+    gy_off = UP._launch_pmax_bwd(g_off, win_off)
     ins = [t.clone().requires_grad_(True) for t in (y, bias)]
     gk = torch.autograd.grad(UP.PhaseMaxFunction.apply(*ins)[0], ins, g)
     ins_r = [t.clone().requires_grad_(True) for t in (y, bias)]
@@ -657,11 +762,17 @@ def _pmax_errors(B, C, h, w, dtype, gen, ties: bool):
     torch.cuda.synchronize()
     check(torch.equal(gk[0], gy),
           f"PhaseMaxFunction's backward is not the kernel's at {[B, C, h, w]}")
+    plans = [_plan("phasemax_bwd", g, win), _plan("phasemax_bwd", g_off, win_off)]
+    check(plans[1].variant == "scalar", f"a misaligned g and win took {plans[1]}")
+    gy_ref = UP.phase_max_vjp_reference(g, win_ref)
     e = {"fwd": _err(out, ref), "win": int((win != win_ref).sum().item()),
-         "gy": _err(gy, UP.phase_max_vjp_reference(g, win_ref)), "gy_autograd": _err(gy, gr[0]),
-         "gbias": _err(gk[1], gr[1])}
-    tol = {"fwd": 0.0, "win": 0, "gy": 0.0, "gy_autograd": 0.0, "gbias": _sum_tol(gr[1], g)}
-    return e, tol
+         "gy": _err(gy, gy_ref), "gy_variants": max(_err(t, gy_ref) for t in gys),
+         "gy_offset": _err(gy_off, gy_ref),
+         "gy_autograd": _err(gy, gr[0]), "gbias": _err(gk[1], gr[1])}
+    tol = {"fwd": 0.0, "win": 0, "gy": 0.0, "gy_variants": 0.0, "gy_offset": 0.0,
+           "gy_autograd": 0.0,
+           "gbias": _sum_tol(gr[1], g)}
+    return e, tol, plans
 
 
 def _old_stage(x, w, b, relu):
@@ -757,28 +868,40 @@ def upconv_kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     err = {k: 0.0 for k in ("upconv_fwd", "upconv_bwd", "phasemax_fwd", "phasemax_bwd")}
+    # the plan at the main path's shapes (fresh, aligned tensors): the vector variant
+    for dtype in (torch.bfloat16, torch.float32):
+        for kernel, shape in [("upconv_fwd", (B, C, H, W)) for B, _, H, W, C in UP_STAGES] + \
+                             [("phasemax_bwd", (B, C, H // 2, W // 2))
+                              for B, _, H, W, C in PMAX_BLOCKS]:
+            plan = UP.launch_plan(kernel, shape, dtype)
+            check(plan.variant == "vector" and plan.elems_per_thread >= VECTOR_ELEMS[dtype],
+                  f"{kernel} {list(shape)} {dtype} plans {plan}")
     for i, (B, _, H, W, C) in enumerate(UP_STAGES + UP_EDGE):
         for dtype in (torch.bfloat16, torch.float32):
             for r in ((True, False) if i >= len(UP_STAGES) else (i < len(UP_STAGES) - 1,)):
-                e, tol = _upconv_errors(B, C, H, W, r, dtype, gen)
+                e, tol, plans = _upconv_errors(B, C, H, W, r, dtype, gen)
                 what = f"[{B}, {4 * C}, {H}, {W}] {str(dtype)[6:]} relu {r}"
                 print(f"upconv {what}: " + ", ".join(
-                    f"{k} {e[k]:.3e} (tol {tol[k]:.1e})" for k in e))
+                    f"{k} {e[k]:.3e} (tol {tol[k]:.1e})" for k in e)
+                    + "; fwd " + " / offset ".join(f"{p.variant} {p.elems_per_thread}"
+                                                  for p in plans))
                 for k in e:
                     check(e[k] <= tol[k], f"upconv {k} {what}: {e[k]} > {tol[k]}")
-                err["upconv_fwd"] = max(err["upconv_fwd"], e["fwd"])
+                err["upconv_fwd"] = max(err["upconv_fwd"], e["fwd"], e["fwd_offset"])
                 err["upconv_bwd"] = max(err["upconv_bwd"], e["gy"], e["gqr"], e["gqc"])
     for B, _, H, W, C in PMAX_BLOCKS + PMAX_EDGE:
         for dtype in (torch.bfloat16, torch.float32):
             for ties in (False, True):
-                e, tol = _pmax_errors(B, C, H // 2, W // 2, dtype, gen, ties)
+                e, tol, plans = _pmax_errors(B, C, H // 2, W // 2, dtype, gen, ties)
                 what = f"[{B}, {4 * C}, {H // 2}, {W // 2}] {str(dtype)[6:]} ties {ties}"
                 print(f"phasemax {what}: " + ", ".join(f"{k} {e[k]:.3e} (tol {tol[k]:.1e})"
-                                                       for k in e))
+                                                       for k in e)
+                      + "; bwd " + " / offset ".join(f"{p.variant} {p.elems_per_thread}"
+                                                    for p in plans))
                 for k in e:
                     check(e[k] <= tol[k], f"phasemax {k} {what}: {e[k]} > {tol[k]}")
                 err["phasemax_fwd"] = max(err["phasemax_fwd"], e["fwd"])
-                err["phasemax_bwd"] = max(err["phasemax_bwd"], e["gy"])
+                err["phasemax_bwd"] = max(err["phasemax_bwd"], e["gy"], e["gy_offset"])
     for shape, block in [(s, False) for s in UP_STAGES + UP_EDGE] + \
                         [(s, True) for s in PMAX_BLOCKS + PMAX_EDGE]:
         errs, tols = _stage_errors(*shape, gen, block)
@@ -808,24 +931,36 @@ def upconv_kernel_phase():
         ref = UP.upconv_epilogue_reference(*ins, relu)
         xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
         old, new = _old_stage(*xs, relu), UP.fused_upsample_reflect_conv(*xs, relu=relu)
-        fwd = {"ms": median_ms(lambda: UP._launch_upconv_fwd(y, qr, qc, bias, relu)),
+        fwd = {"ms": median_ms(lambda: UP._launch_upconv_fwd(y, qr, qc, bias, relu), lead=True),
                "plain_ms": median_ms(lambda: UP.upconv_epilogue_reference(y, qr, qc, bias, relu),
                                      reps=3),
                "unfused_ms": median_ms(lambda: _old_stage(x, w, b, relu)),
                "stage_ms": median_ms(lambda: UP.fused_upsample_reflect_conv(x, w, b, relu))}
-        bwd = {"ms": median_ms(lambda: UP._launch_upconv_bwd(g, out if relu else None)),
+        plan = _plan("upconv_fwd", y, out)
+        fwd.update(variant=plan.variant, elems_per_thread=plan.elems_per_thread, elems_ms={
+            n: median_ms(lambda: UP._launch_upconv_fwd(y, qr, qc, bias, relu, n), lead=True)
+            for n in _elems_options("upconv_fwd", bf) if _takes("upconv_fwd", n, y)})
+        if i == len(UP_STAGES) - 1:  # 34 MB, under the L2: with L2 flushed before each call
+            fwd["cold_ms"] = cold_ms(lambda: UP._launch_upconv_fwd(y, qr, qc, bias, relu))
+            print(f"upconv_fwd bf16 stage {i}: warm L2 {fwd['ms']:.4f} ms, L2 flushed before "
+                  f"each call {fwd['cold_ms']:.4f} ms")
+        bwd = {"ms": median_ms(lambda: UP._launch_upconv_bwd(g, out if relu else None),
+                               lead=True),
                "plain_ms": median_ms(lambda: torch.autograd.grad(ref, ins, g, retain_graph=True),
                                      reps=3),
                "unfused_ms": median_ms(lambda: torch.autograd.grad(old, xs, g, retain_graph=True)),
                "stage_ms": median_ms(lambda: torch.autograd.grad(new, xs, g, retain_graph=True))}
         for k, d in (("upconv_fwd", fwd), ("upconv_bwd", bwd)):
-            d.update(shape=[B, Cin, H, W, C], relu=relu,
-                     bound_ms=_bytes(k, (B, Cin, H, W, C), 2, relu) / HBM_BYTES_PER_S * 1e3)
+            nbytes = _bytes(k, (B, Cin, H, W, C), 2, relu)
+            d.update(shape=[B, Cin, H, W, C], relu=relu, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     copy_ms=_copy_ms(nbytes))
             cases[k].append(d)
             print(f"{k} bf16 stage {i} [{B}, {Cin}, {H}, {W}] -> {C}: kernel {d['ms']:.4f} ms, "
-                  f"bound {d['bound_ms']:.4f} ms ({100 * d['bound_ms'] / d['ms']:.1f} %), plain "
-                  f"{d['plain_ms']:.4f} ms; the whole stage fused {d['stage_ms']:.4f} ms, "
-                  f"unfused {d['unfused_ms']:.4f} ms")
+                  f"bound {d['bound_ms']:.4f} ms ({100 * d['bound_ms'] / d['ms']:.1f} %), copy_ "
+                  f"of the bytes {d['copy_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms; the whole "
+                  f"stage fused {d['stage_ms']:.4f} ms, unfused {d['unfused_ms']:.4f} ms"
+                  + (f"; {d['variant']} {d['elems_per_thread']}, by elements a thread "
+                     + json.dumps(d["elems_ms"]) if "variant" in d else ""))
     for i, (B, Cin, H, W, C) in enumerate(PMAX_BLOCKS):
         x = torch.randn((B, Cin, H, W), device=dev, generator=gen).to(bf)
         k5 = (torch.randn((C, Cin, 5, 5), device=dev, generator=gen) / math.sqrt(25 * Cin)).to(bf)
@@ -840,11 +975,16 @@ def upconv_kernel_phase():
         xs = [t.clone().requires_grad_(i > 0 or j > 0) for j, t in enumerate((x, k5, b))]
         need = [t for t in xs if t.requires_grad]
         old, new = _old_block(*xs), UP.fused_conv5_relu_maxpool(*xs)
-        fwd = {"ms": median_ms(lambda: UP._launch_pmax_fwd(y, bias)),
+        fwd = {"ms": median_ms(lambda: UP._launch_pmax_fwd(y, bias), lead=True),
                "plain_ms": median_ms(lambda: UP.phase_max_reference(y, bias), reps=3),
                "unfused_ms": median_ms(lambda: _old_block(x, k5, b)),
                "stage_ms": median_ms(lambda: UP.fused_conv5_relu_maxpool(x, k5, b))}
-        bwd = {"ms": median_ms(lambda: UP._launch_pmax_bwd(g, win)),
+        plan = _plan("phasemax_bwd", g, win)
+        bwd = {"ms": median_ms(lambda: UP._launch_pmax_bwd(g, win), lead=True),
+               "variant": plan.variant, "elems_per_thread": plan.elems_per_thread,
+               "elems_ms": {n: median_ms(lambda: UP._launch_pmax_bwd(g, win, n), lead=True)
+                            for n in _elems_options("phasemax_bwd", bf)
+                            if _takes("phasemax_bwd", n, g, win)},
                "plain_ms": median_ms(lambda: torch.autograd.grad(ref, ins, g, retain_graph=True),
                                      reps=3),
                "unfused_ms": median_ms(lambda: torch.autograd.grad(old, need, g,
@@ -852,13 +992,16 @@ def upconv_kernel_phase():
                "stage_ms": median_ms(lambda: torch.autograd.grad(new, need, g,
                                                                  retain_graph=True))}
         for k, d in (("phasemax_fwd", fwd), ("phasemax_bwd", bwd)):
-            d.update(shape=[B, Cin, H, W, C], bound_ms=_bytes(k, (B, Cin, H, W, C), 2)
-                     / HBM_BYTES_PER_S * 1e3)
+            nbytes = _bytes(k, (B, Cin, H, W, C), 2)
+            d.update(shape=[B, Cin, H, W, C], bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     copy_ms=_copy_ms(nbytes))
             cases[k].append(d)
             print(f"{k} bf16 block {i} [{B}, {Cin}, {H}, {W}] -> {C}: kernel {d['ms']:.4f} ms, "
-                  f"bound {d['bound_ms']:.4f} ms ({100 * d['bound_ms'] / d['ms']:.1f} %), plain "
-                  f"{d['plain_ms']:.4f} ms; the whole block fused {d['stage_ms']:.4f} ms, "
-                  f"unfused {d['unfused_ms']:.4f} ms")
+                  f"bound {d['bound_ms']:.4f} ms ({100 * d['bound_ms'] / d['ms']:.1f} %), copy_ "
+                  f"of the bytes {d['copy_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms; the whole "
+                  f"block fused {d['stage_ms']:.4f} ms, unfused {d['unfused_ms']:.4f} ms"
+                  + (f"; {d['variant']} {d['elems_per_thread']}, by elements a thread "
+                     + json.dumps(d["elems_ms"]) if "variant" in d else ""))
 
     # one decoder stage's (stage 1) and STN block's (block 1) launches, both ways
     B, Cin, H, W, C = UP_STAGES[1]
@@ -895,6 +1038,9 @@ def upconv_kernel_phase():
     check(launches["stage_fused_fwd"] < launches["stage_unfused_fwd"],
           f"the fused stage's forward launches {launches['stage_fused_fwd']} kernels, the "
           f"unfused {launches['stage_unfused_fwd']}")
+    for k in ("upconv_fwd", "phasemax_bwd"):
+        check(all(c["variant"] == "vector" for c in cases[k]),
+              f"{k} took the scalar variant at a main path shape: {cases[k]}")
     ms = {k: sum(c["ms"] for c in v) for k, v in cases.items()}
     return {"err": err, "ms": ms, "cases": cases,
             "launches_per_call": launches}
@@ -913,11 +1059,27 @@ def agreement_phase():
     with torch.no_grad():
         want = cpu.train_forward_paired(x, x_rot, eps=eps)
         got = gpu.train_forward_paired(x.cuda(), x_rot.cuda(), eps=eps.cuda())
+        # the rotation alone: the card's STN rotation of x by the CPU's theta
+        x_can = gpu.encoder.rotation_stn.apply_rotation(x.cuda(), None, None, want[2].cuda())
     torch.cuda.synchronize()
-    worst = max((a.float().cpu() - b.float()).abs().max().item() for a, b in zip(got, want))
-    # 2e-4: the bound the CPU port holds against the JAX package
-    print(f"agreement: f32 train_forward_paired, card vs CPU, max_abs_err {worst:.3e} (tol 2e-4)")
+    names = ("rotated_recon", "recon", "theta", "mu", "logvar", "x_canonical", "theta_rot")
+    errs = {n: (a.float().cpu() - b.float()).abs().max().item()
+            for n, a, b in zip(names, got, want)}
+    rot_err = (x_can.float().cpu() - want[5]).abs().max().item()
+    worst = max(errs.values())
+    # 2e-4: the bound the CPU port holds against the JAX package. x_canonical is
+    # the STN's rotation of uniform noise, so a few e-6 rad of theta (summed in
+    # another order on each device) move it by about 1e-4: the rotation alone,
+    # by the CPU's theta, is held at 5e-5 (rot3 is bit-equal on the same
+    # shifts; the card's tan and sin, a few ulps from the CPU's, move this
+    # input by 2.1e-5 at 8 ulps)
+    print("agreement: f32 train_forward_paired, card vs CPU, max_abs_err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f"; worst {worst:.3e} (tol 2e-4); x_canonical by the CPU's theta {rot_err:.3e} "
+          f"(tol 5e-5)")
     check(worst <= 2e-4, "model on the card disagrees with the CPU")
+    check(rot_err <= 5e-5, "the card's rotation by the CPU's theta disagrees with the CPU's")
+    return {"max_abs_err": errs, "x_canonical_by_cpu_theta": rot_err}
 
 
 def bench_dataset():
@@ -983,6 +1145,7 @@ def main_path(ds, build_s: float):
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     launches = counts()
+    variants = dict(UP.VARIANT_LAUNCHES)
     m = ENCODE_STEPS * BATCH
     check(tuple(mu.shape) == (m, LATENT) and tuple(logvar.shape) == (m, LATENT)
           and tuple(theta.shape) == (m, 1), "encode shapes")
@@ -992,6 +1155,10 @@ def main_path(ds, build_s: float):
     check(launches == launches_of((PAIRED_STEP, steps), (PAIRED_EVAL, EPOCHS * VAL_BATCHES),
                                   (ENCODE_BATCH, 2 * ENCODE_STEPS)),
           f"main path launches {launches}")
+    # every planned launch of the main path takes the vector variant
+    check(variants == {"upconv_fwd vector": launches["upconv_fwd"],
+                       "phasemax_bwd vector": launches["phasemax_bwd"]},
+          f"main path variants {variants}")
 
     last = epochs[-1]
     result = {
@@ -1003,6 +1170,7 @@ def main_path(ds, build_s: float):
         "epochs": epochs,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches,
+        "variants": variants,
     }
     return result
 
@@ -1246,7 +1414,9 @@ def train_rvae_phase(tmp: Path):
         check(r_launches == resumed["epochs"][0]["launches"], f"resumed launches {r_launches}")
     finally:
         del os.environ["LIVAE_PARAM_HASH"]
+    inputs = _h5_and_tensorboard_runs(tmp, out["sites"])
     return {
+        "inputs": inputs,
         "sites": list(out["sites"]), "dataset_build_s": out["dataset_build_s"],
         "epochs": _epoch_rates(out), "resumed_epoch": _epoch_rates(resumed)[0],
         "betas": [e["beta"] for e in out["epochs"]] + [resumed["epochs"][0]["beta"]],
@@ -1255,6 +1425,47 @@ def train_rvae_phase(tmp: Path):
         "peak_memory_gib": max(peak, r_peak),
         "launches": {k: launches[k] + r_launches[k] for k in launches},
     }
+
+
+def _h5_and_tensorboard_runs(tmp: Path, sites) -> dict:
+    """One train_rvae epoch on the same two frames written to .h5 files and
+    read back with --data, where h5py imports, and one with TensorBoard
+    logging on (no --no-tensorboard), where tensorboardX imports; else a line
+    naming each run skipped. Each run: the synthetic run's site table, the
+    launches of its steps and val batches, finite metrics."""
+    out = {}
+    paired = dict(per_step=PAIRED_STEP, per_val_batch=PAIRED_EVAL)
+    if _missing("h5py"):
+        print(f"train_rvae --data skipped: {'; '.join(_missing('h5py'))}")
+        out["h5"] = "skipped: no h5py"
+    else:
+        from livae_tpu_torch.data.synthetic import save_frame_h5
+
+        paths = []
+        for seed in range(2):  # the frames of FRAMES
+            paths.append(str(tmp / f"frame{seed}.h5"))
+            frame = synthetic_mos2_frame(size=FRAME_SIZE, spacing=40.0, seed=seed)[0]
+            save_frame_h5(paths[-1], frame)
+        run, launches, _, _ = run_cli(train_rvae, [
+            "--data", *paths, "--val-split", "0.25", "--no-tensorboard", "--epochs", "1",
+            "--checkpoint", str(tmp / "h5" / "rvae_best.pt")])
+        check(run["sites"] == sites, f"the .h5 frames gave sites {run['sites']}, not {sites}")
+        _check_epochs(run, "train_rvae --data", **paired)
+        out["h5"] = {"epoch": _epoch_rates(run)[0], "launches": launches}
+    if _missing("tensorboardX"):
+        print(f"train_rvae with TensorBoard skipped: {'; '.join(_missing('tensorboardX'))}")
+        out["tensorboard"] = "skipped: no tensorboardX"
+    else:
+        logs = tmp / "runs"
+        run, launches, _, _ = run_cli(train_rvae, [
+            *FRAMES, "--val-split", "0.25", "--epochs", "1", "--log-dir", str(logs),
+            "--checkpoint", str(tmp / "tb" / "rvae_best.pt")])
+        _check_epochs(run, "train_rvae with TensorBoard", **paired)
+        events = sorted(str(f.relative_to(logs)) for f in logs.rglob("events.out.tfevents.*"))
+        check(len(events) > 0, f"train_rvae with TensorBoard wrote no event file under {logs}")
+        out["tensorboard"] = {"epoch": _epoch_rates(run)[0], "events": events,
+                              "launches": launches}
+    return out
 
 
 def train_vae_phase(tmp: Path):
@@ -2582,7 +2793,8 @@ def main() -> int:
     s_err, s_ms, s_bound, s_cases = timed("shear_kernel", shear_kernel_phase)
     up = timed("upconv_kernel", upconv_kernel_phase)
     print("upconv_kernels " + json.dumps({"card": smi, **up}))
-    timed("agreement", agreement_phase)
+    agreement = timed("agreement", agreement_phase)
+    print("agreement " + json.dumps({"card": smi, **agreement}))
     ds, build_s = timed("bench_dataset", bench_dataset)
     main = timed("main_path", main_path, ds, build_s)
     print("main_path " + json.dumps({"card": smi, **main}))
@@ -2665,11 +2877,15 @@ def main() -> int:
                            ("phasemax_bwd", "livae_tpu/ops/upconv.py:299")):
         cases = up["cases"][name]
         total = {k: sum(c[k] for c in cases) for k in ("ms", "plain_ms", "bound_ms",
-                                                        "stage_ms", "unfused_ms")}
+                                                        "stage_ms", "unfused_ms", "copy_ms")}
+        # the plan's variant on every stage or block, and its elements a thread on each
+        planned = {} if "variant" not in cases[0] else {
+            "variant": "/".join(sorted({c["variant"] for c in cases})),
+            "elems_per_thread": [c["elems_per_thread"] for c in cases]}
         kernels.append({"name": name, "route": "cuda", "source": up_src, "replaces": replaces,
                         "launches": main["launches"][name], "launches_path": "main",
                         "max_abs_err": up["err"][name], **total, "bound_by": "bytes",
-                        "library_ms": None, "dtype": "bfloat16", "cases": cases})
+                        "library_ms": None, "dtype": "bfloat16", **planned, "cases": cases})
     by_path = {"main": main["launches"], "rotation": shear_launches,
                "exact_resample": exact["launches"], "train_rvae": rvae_cli["launches"],
                "train_vae": vae_cli["launches"], "patch_dataset": patches["launches"],

@@ -18,9 +18,9 @@
 // qr [B, 6C, 2, W] and qc [B, 6C, H, 2] the edge lines projected on the taps
 // (channel (k*3 + a)*C + c; qr's line k = 0 is the top line 0.25 (x[1] - x[0])
 // under tap row 0, k = 1 the bottom line 0.25 (x[H-2] - x[H-1]) under tap row 2,
-// each under tap column a; qc the left and right columns alike). One thread per
-// output element out[b, c, 2i+p, 2j+q] = y[b, (p,q,c), i, j] + (on an outer
-// line) the exact 1-D operator of the other axis on the projected line:
+// each under tap column a; qc the left and right columns alike). Each output
+// element out[b, c, 2i+p, 2j+q] = y[b, (p,q,c), i, j] + (on an outer line) the
+// exact 1-D operator of the other axis on the projected line:
 // sum_a U(P_a)[refl(J + a - 1)], U the 2x bilinear upsample with clamped edges,
 // refl the reflection into [0, 2n); at the four corners less the term both
 // sides count; + bias. Each correction is rounded to the I/O type and added, and
@@ -29,6 +29,24 @@
 // the exact sum. The arithmetic is that of upconv_epilogue_reference, operation
 // for operation in f32 with no FMA contraction: the result is bit-equal to the
 // plain version.
+//
+// A thread of upconv_fwd writes a run of R consecutive outputs along one output
+// row 2i+p, columns J0 .. J0+R-1 (the launch plan, ops/upconv.launch_plan, picks
+// R). The vector variants take 16, 32 or 64 bytes of outputs (8 to 32 bf16, 4
+// to 16 f32): R / 2 values from each of the phase planes (p, 0) and (p, 1) of
+// row i in loads of 8 or 16 bytes, interleaved in registers, the bias once,
+// 16-byte stores. They need 2W a multiple of R, y aligned to its loads and out
+// to 16 bytes; the scalar variant (R = 1) takes any width and alignment. The
+// threads fall in two ranges. First every plane's rows 0 and 2H-1, whose every
+// element takes the row correction (and at the ends the column and corner
+// terms), in runs of at most 16 bytes: a range of their own, so that the other
+// warps do not wait on them, and the first, so that their longer work starts
+// early and no tail of them is left when the rest is done. The plan takes the
+// longest run that still gives the launch enough blocks to fill the card
+// several times over. Then every plane's rows 1 .. 2H-2, run by run, so
+// that a warp covers whole output rows and reads each sector of y's rows once
+// (a row's first and last run add the one column correction of their outer
+// element).
 //
 // upconv_bwd. One launch, three groups of planes: g_y (the cotangent gathered
 // back to phase space, masked by the ReLU where the saved output is given), and
@@ -39,8 +57,14 @@
 // phases' relu(round(y + b)) (the sum rounded to the I/O type, as the plain
 // version adds in it), their max, and the first maximal phase in the order
 // (0,0), (0,1), (1,0), (1,1) as a uint8, or 255 where the max is not above 0
-// (relu's gradient is 0 there). phasemax_bwd: one thread per g_y element, g on
-// the winning phase, 0 elsewhere. Both are bit-equal to the plain versions.
+// (relu's gradient is 0 there). phasemax_bwd routes the cotangent g [B, C, h, w]
+// to the winning phase of g_y [B, 4C, h, w], 0 to the others: a thread takes V
+// consecutive elements of g (16 bytes: 8 bf16, 4 f32; V = 1 in the scalar
+// variant) and their V winner bytes, and writes V elements to each of the four
+// phase planes, so g and win are read once and each of the four stores is
+// coalesced across the warp. The vector variant needs h*w a multiple of V, g and
+// g_y 16-byte and win V-byte aligned. It copies g's bits, as torch.where does.
+// Both are bit-equal to the plain versions.
 //
 // A bias of [L, C] serves L groups of B / L consecutive samples (lane_rows):
 // the stacked trials fold K lanes, each with its own weights, into one batch.
@@ -48,20 +72,19 @@
 // Bound on the H100: a few f32 operations per element against 4 (bf16) or 8
 // (f32) bytes of I/O, so every kernel is bound by memory. upconv_fwd reads y
 // and writes out (the same count), plus the small qr, qc and bias; at batch 512
-// in bf16 the decoder's four stages move 67, 134, 268 and 34 MB. phasemax_fwd
-// reads 4 elements per output and writes one and a byte. The design is the
-// simple one: each thread takes 4 elements a block-width apart, consecutive
-// threads on consecutive outputs (stores coalesced; loads in two interleaved
-// runs for upconv_fwd). At 2 bytes an element, index arithmetic costs as much
-// as the memory traffic and one element a thread keeps too few bytes in
-// flight: the first version (one element a thread, 64-bit divisions, the outer
-// lines' pixels among the interior ones, whose warps then waited on the
-// corrections' chain of loads) reached 7-11 % of the bound for upconv_fwd and
-// 17 % for phasemax_bwd (chip_smoke.py, H100 80GB HBM3, 700 W). So the
-// divisions are multiplies and shifts, upconv_fwd gives the outer lines'
-// pixels a range of threads of their own, and a thread's 4 elements load
-// together.
+// in bf16 the decoder's four stages move 80, 147, 281 and 34 MB. phasemax_fwd
+// reads 4 elements per output and writes one and a byte. upconv_bwd and
+// phasemax_fwd are the simple design: each thread takes 4 elements a
+// block-width apart, consecutive threads on consecutive outputs, divisions as
+// multiplies and shifts. With 2-byte accesses one element at a time that design
+// reached 13-18 % of the bound for upconv_fwd and 23 % for phasemax_bwd
+// (chip_smoke.py, H100 80GB HBM3, 700 W): a warp's access moved 64 bytes, every
+// element paid its own index arithmetic, and phasemax_bwd read g and win once
+// per phase. So those two move 16 to 64 bytes a thread in 16-byte accesses and
+// pay the index arithmetic once per run: 65 % and 87 % of the bound at batch
+// 512 (the same script and card).
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -70,6 +93,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// upconv_fwd's blocks per SM: at most 48 registers a thread, which the runs of
+// 32 bytes need to keep 1280 threads' loads in flight (measured on the H100)
+constexpr int kFwdBlocks = 5;
 // Elements a thread takes, kThreads apart: their loads are in flight together
 // (at 2-3 bytes an element, one a thread leaves the memory system idle).
 constexpr int kItems = 4;
@@ -155,97 +181,198 @@ FastDiv fast_div(unsigned d) {
   return {d, static_cast<unsigned>(((one << 32) * ((one << s) - d)) / d + 1), s};
 }
 
-// The extents of an upconv launch: B, C, H, W and their divisors.
+// The extents of an upconv_bwd launch: B, C, H, W and their divisors.
 struct UpShape {
-  int B, C, H, W, lane_rows;
-  FastDiv C1, C3, C4, C6, lane, W1, W2i, ni, ne, hw, len_r, len_c;
+  int B, C, H, W;
+  FastDiv C1, C3, C4, C6, W1, hw, len_r, len_c;
 };
 
-UpShape up_shape(int B, int C, int H, int W, int lane_rows) {
-  const int H2 = 2 * H, W2 = 2 * W;
-  return {B, C, H, W, lane_rows, fast_div(C), fast_div(3 * C), fast_div(4 * C),
-          fast_div(6 * C), fast_div(lane_rows), fast_div(W), fast_div(W2 - 2),
-          fast_div((H2 - 2) * (W2 - 2)), fast_div(2 * W2 + 2 * (H2 - 2)), fast_div(H * W),
-          fast_div(2 * W), fast_div(2 * H)};
+UpShape up_shape(int B, int C, int H, int W) {
+  return {B, C, H, W, fast_div(C), fast_div(3 * C), fast_div(4 * C), fast_div(6 * C),
+          fast_div(W), fast_div(H * W), fast_div(2 * W), fast_div(2 * H)};
 }
 
-// The output pixel of thread idx: first every plane's interior pixels, row by
-// row, then every plane's outer lines (row 0, row 2H-1, then column 0 and
-// column 2W-1 without their ends), so that a warp of interior pixels never
-// waits on an outer pixel's corrections. False past the end.
-__device__ __forceinline__ bool fwd_pixel(unsigned idx, const UpShape& u, int& plane, int& I,
-                                          int& J) {
-  const int H2 = 2 * u.H, W2 = 2 * u.W;
-  const unsigned planes = static_cast<unsigned>(u.B) * u.C;
-  const unsigned n_in = planes * u.ni.d;
-  if (idx < n_in) {
-    plane = u.ni.div(idx);
-    const unsigned r = idx - plane * u.ni.d;
-    const int row = u.W2i.div(r);
-    I = 1 + row;
-    J = 1 + static_cast<int>(r - row * u.W2i.d);
-    return true;
-  }
-  idx -= n_in;
-  if (idx >= planes * u.ne.d) return false;
-  plane = u.ne.div(idx);
-  int e = static_cast<int>(idx - plane * u.ne.d);
-  if (e < W2) {
-    I = 0, J = e;
-  } else if ((e -= W2) < W2) {
-    I = H2 - 1, J = e;
-  } else if ((e -= W2) < H2 - 2) {
-    I = 1 + e, J = 0;
-  } else {
-    I = 1 + e - (H2 - 2), J = W2 - 1;
-  }
-  return true;
-}
-
+// A type's bits, and their conversions to and from f32: a bf16 is the top half
+// of the f32 of the same value; the way back rounds to nearest even.
 template <typename T>
-__device__ __forceinline__ void upconv_fwd_item(unsigned idx, const T* __restrict__ y,
-                                                const T* __restrict__ qr,
-                                                const T* __restrict__ qc,
-                                                const T* __restrict__ bias, T* __restrict__ out,
-                                                const UpShape& u, int relu) {
+struct Io;
+template <>
+struct Io<float> {
+  using Bits = uint32_t;
+  static __device__ __forceinline__ float f(Bits b) { return __uint_as_float(b); }
+  static __device__ __forceinline__ Bits bits(float v) { return __float_as_uint(v); }
+};
+template <>
+struct Io<__nv_bfloat16> {
+  using Bits = uint16_t;
+  static __device__ __forceinline__ float f(Bits b) {
+    return __uint_as_float(static_cast<uint32_t>(b) << 16);
+  }
+  static __device__ __forceinline__ Bits bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+// N consecutive elements as one aligned access: 8 or 16 bytes in the vector
+// variants.
+template <typename B, int N>
+struct alignas(sizeof(B) * N) Pack {
+  B v[N];
+};
+
+// The runs of an upconv_fwd launch whose rows 1 .. 2H-2 take runs of R outputs:
+// rows 0 and 2H-1 take runs of at most 16 bytes (row_run), whose corrections
+// cost a register for each output.
+template <typename T>
+__host__ __device__ constexpr int row_run(int R) {
+  return R < static_cast<int>(16 / sizeof(T)) ? R : static_cast<int>(16 / sizeof(T));
+}
+
+// The extents of an upconv_fwd launch: the two ranges' thread counts and the
+// divisors that map a thread to its run.
+struct FwdShape {
+  int C, H, W;
+  unsigned n_row, n_mid;
+  // runs per row of rows 0 and 2H-1 (nrr) and of rows 1 .. 2H-2 (nr)
+  FastDiv C1, lane, nrr, row_plane, nr, mid_plane;
+};
+
+FwdShape fwd_shape(int B, int C, int H, int W, int lane_rows, int R, int RR) {
+  const unsigned nr = 2 * W / R, nrr = 2 * W / RR, rows = 2 * H - 2;
+  const unsigned planes = static_cast<unsigned>(B) * C;
+  return {C, H, W, planes * 2 * nrr, planes * rows * nr, fast_div(C), fast_div(lane_rows),
+          fast_div(nrr), fast_div(2 * nrr), fast_div(nr), fast_div(rows * nr)};
+}
+
+// s[k] = line_op(L, J0 + k) for the R outputs of a run of row 0 or 2H-1 (J0 and
+// R even). The u_a of K = J0 - 1 .. J0 + R (the three taps' positions of the
+// run) come from one window of each projected line, P_a[J0/2 - 2 .. J0/2 + R/2 +
+// 1], its ends clamped into [0, n) as `taps` clamps the neighbour; K = -1 and
+// K = 2n reflect to 1 and 2n - 2 as `refl` does. The operations of line_op on
+// the same values, so the same bits, from a third of its loads.
+template <typename T, int R>
+__device__ __forceinline__ void row_line_ops(const Line<T>& L, int J0, float (&s)[R]) {
+  const int w0 = J0 / 2 - 2, n = L.n;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float P[R / 2 + 4];
+#pragma unroll
+    for (int t = 0; t < R / 2 + 4; ++t) P[t] = L.at(a, min(max(w0 + t, 0), n - 1));
+    float u[R + 2];  // u[i]: K = J0 - 1 + i
+#pragma unroll
+    for (int i = 0; i < R + 2; ++i) {
+      // the window's slots of K >> 1 and of its neighbour (K odd: the next)
+      const int m = (i + 3) / 2, m2 = i % 2 == 0 ? m + 1 : m - 1;
+      u[i] = __fadd_rn(__fmul_rn(0.75f, P[m]), __fmul_rn(0.25f, P[m2]));
+    }
+    if (J0 == 0) u[0] = u[2];
+    if (J0 + R == 2 * n) u[R + 1] = u[R - 1];
+#pragma unroll
+    for (int k = 0; k < R; ++k) s[k] = a == 0 ? u[k] : __fadd_rn(s[k], u[k + a]);
+  }
+}
+
+// kInterior: a run of rows 1 .. 2H-2 that touches no outer column; kEnd: one
+// that does; kRow: a run of row 0 or 2H-1.
+enum RunKind { kInterior, kEnd, kRow };
+
+// The run of R outputs at row I, columns J0 .. J0+R-1 of plane b * C + c; ROW:
+// a run of row 0 or 2H-1 (kind kRow), else of rows 1 .. 2H-2.
+template <typename T, int R, bool ROW>
+__device__ __forceinline__ void upconv_fwd_run(RunKind kind, int plane, int I, int J0,
+                                               const T* __restrict__ y,
+                                               const T* __restrict__ qr,
+                                               const T* __restrict__ qc,
+                                               const T* __restrict__ bias, T* __restrict__ out,
+                                               const FwdShape& u, int relu) {
+  using B = typename Io<T>::Bits;
   const int C = u.C, H = u.H, W = u.W, H2 = 2 * H, W2 = 2 * W;
-  int plane, I, J;
-  if (!fwd_pixel(idx, u, plane, I, J)) return;
   const int b = u.C1.div(plane), c = plane - b * C;
-  const int ph = (I & 1) * 2 + (J & 1);
-  const size_t hw = static_cast<size_t>(H) * W;
-  float v = ld(y, (static_cast<size_t>(b) * 4 + ph) * C * hw + c * hw + (I >> 1) * W + (J >> 1));
-  if (I == 0 || I == H2 - 1 || J == 0 || J == W2 - 1) {
+  const size_t hw = static_cast<size_t>(H) * W, step = C * hw;
+  // row i of phase plane (p, 0); that of (p, 1) is `step` further
+  const B* row = reinterpret_cast<const B*>(y) + (static_cast<size_t>(b) * 4 + 2 * (I & 1)) * step +
+                 c * hw + static_cast<size_t>(I >> 1) * W;
+  constexpr int S = 16 / sizeof(B);  // elements of one 16-byte access
+  float v[R];
+  if constexpr (R == 1) {
+    v[0] = Io<T>::f(row[(J0 & 1) * step + (J0 >> 1)]);
+  } else {
+    // the run's R / 2 values of each phase plane, in loads of at most 16 bytes
+    constexpr int L = R / 2 < S ? R / 2 : S;
+    Pack<B, L> even[R / 2 / L], odd[R / 2 / L];
+#pragma unroll
+    for (int h = 0; h < R / 2 / L; ++h) {
+      even[h] = *reinterpret_cast<const Pack<B, L>*>(row + J0 / 2 + h * L);
+      odd[h] = *reinterpret_cast<const Pack<B, L>*>(row + step + J0 / 2 + h * L);
+    }
+#pragma unroll
+    for (int k = 0; k < R / 2; ++k) {
+      v[2 * k] = Io<T>::f(even[k / L].v[k % L]);
+      v[2 * k + 1] = Io<T>::f(odd[k / L].v[k % L]);
+    }
+  }
+  if (kind != kInterior) {
     const size_t q0 = static_cast<size_t>(b) * 6 * C + c;  // channel (k=0, a=0, c)
     const Line<T> top{qr + (q0 * 2 + 0) * W, static_cast<size_t>(C) * 2 * W, 1, W};
     const Line<T> bot{qr + ((q0 + 3 * C) * 2 + 1) * W, static_cast<size_t>(C) * 2 * W, 1, W};
     const Line<T> left{qc + q0 * H * 2 + 0, static_cast<size_t>(C) * H * 2, 2, H};
     const Line<T> right{qc + (q0 + 3 * C) * H * 2 + 1, static_cast<size_t>(C) * H * 2, 2, H};
+    const Line<T> L = I == 0 ? top : bot;
+    const bool first = J0 == 0, last = J0 + R == W2;
     // JAX's order: the rows' corrections, the columns', the corner terms; each
     // rounded to the I/O type, added, and the sum rounded
-    if (I == 0) v = rounded(__fadd_rn(v, rounded(line_op(top, J), y)), y);
-    if (I == H2 - 1) v = rounded(__fadd_rn(v, rounded(line_op(bot, J), y)), y);
-    if (J == 0) v = rounded(__fadd_rn(v, rounded(line_op(left, I), y)), y);
-    if (J == W2 - 1) v = rounded(__fadd_rn(v, rounded(line_op(right, I), y)), y);
-    if ((I == 0 || I == H2 - 1) && (J == 0 || J == W2 - 1)) {
-      const Line<T>& L = I == 0 ? top : bot;
-      const float cr = J == 0 ? corner(L, 0, 1, 0) : corner(L, 2, W - 2, W - 1);
-      v = rounded(__fsub_rn(v, rounded(cr, y)), y);
+    if constexpr (ROW) {
+      float s[R];
+      if constexpr (R == 1) {
+        s[0] = line_op(L, J0);
+      } else {
+        row_line_ops<T, R>(L, J0, s);
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) v[k] = rounded(__fadd_rn(v[k], rounded(s[k], y)), y);
+    }
+    if (first) v[0] = rounded(__fadd_rn(v[0], rounded(line_op(left, I), y)), y);
+    if (last) v[R - 1] = rounded(__fadd_rn(v[R - 1], rounded(line_op(right, I), y)), y);
+    if (ROW && first) v[0] = rounded(__fsub_rn(v[0], rounded(corner(L, 0, 1, 0), y)), y);
+    if (ROW && last) {
+      v[R - 1] = rounded(__fsub_rn(v[R - 1], rounded(corner(L, 2, W - 2, W - 1), y)), y);
     }
   }
-  v = __fadd_rn(v, ld(bias, static_cast<size_t>(u.lane.div(b)) * C + c));
-  if (relu && v < 0.f) v = 0.f;
-  st(out, (static_cast<size_t>(plane) * H2 + I) * W2 + J, v);
+  const float bv = ld(bias, static_cast<size_t>(u.lane.div(b)) * C + c);
+  B* dst = reinterpret_cast<B*>(out) + (static_cast<size_t>(plane) * H2 + I) * W2 + J0;
+  constexpr int N = R < S ? R : S;  // elements of one store
+#pragma unroll
+  for (int h = 0; h < R / N; ++h) {
+    Pack<B, N> o;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float s = __fadd_rn(v[h * N + k], bv);
+      if (relu && s < 0.f) s = 0.f;
+      o.v[k] = Io<T>::bits(s);
+    }
+    *reinterpret_cast<Pack<B, N>*>(dst + h * N) = o;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// One run per thread, in two ranges: every plane's rows 0 and 2H-1, in runs of
+// row_run(R); then every plane's rows 1 .. 2H-2, row by row, in runs of R.
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
 upconv_fwd(const T* __restrict__ y, const T* __restrict__ qr, const T* __restrict__ qc,
-           const T* __restrict__ bias, T* __restrict__ out, UpShape u, int relu) {
-  const unsigned base = blockIdx.x * (kThreads * kItems) + threadIdx.x;
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    upconv_fwd_item(base + it * kThreads, y, qr, qc, bias, out, u, relu);
+           const T* __restrict__ bias, T* __restrict__ out, FwdShape u, int relu) {
+  constexpr int RR = row_run<T>(R);
+  unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < u.n_row) {
+    const int nrr = u.nrr.d, plane = u.row_plane.div(idx);
+    const int r = static_cast<int>(idx - plane * u.row_plane.d);
+    const int I = r < nrr ? 0 : 2 * u.H - 1, run = r < nrr ? r : r - nrr;
+    upconv_fwd_run<T, RR, true>(kRow, plane, I, run * RR, y, qr, qc, bias, out, u, relu);
+  } else if ((idx -= u.n_row) < u.n_mid) {
+    const int nr = u.nr.d, plane = u.mid_plane.div(idx);
+    const unsigned r = idx - plane * u.mid_plane.d;
+    const int row = u.nr.div(r), run = static_cast<int>(r - row * nr);
+    const RunKind kind = run == 0 || run == nr - 1 ? kEnd : kInterior;
+    upconv_fwd_run<T, R, false>(kind, plane, 1 + row, run * R, y, qr, qc, bias, out, u, relu);
   }
 }
 
@@ -376,26 +503,28 @@ phasemax_fwd(const T* __restrict__ y, const T* __restrict__ bias, T* __restrict_
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void phasemax_bwd_item(unsigned idx, const T* __restrict__ g,
-                                                  const uint8_t* __restrict__ win,
-                                                  T* __restrict__ gy, const PmaxShape& u) {
-  const unsigned hw = u.hw.d;
-  if (idx >= static_cast<unsigned>(u.B) * 4 * u.C * hw) return;
-  const unsigned plane = u.hw.div(idx), p = idx - plane * hw;  // (b * 4 + ph) * C + c
-  const unsigned b = u.C4.div(plane), r = plane - b * u.C4.d;
-  const unsigned ph = u.C1.div(r), c = r - ph * u.C;
-  const size_t o = (static_cast<size_t>(b) * u.C + c) * hw + p;
-  st(gy, idx, win[o] == ph ? ld(g, o) : 0.f);
-}
-
-template <typename T>
+// V consecutive elements of g per thread: thread t takes g[t V .. t V + V - 1]
+// (one plane's, h*w being a multiple of V) and writes them to the four phases.
+template <typename B, int V>
 __global__ void __launch_bounds__(kThreads)
-phasemax_bwd(const T* __restrict__ g, const uint8_t* __restrict__ win, T* __restrict__ gy,
-             PmaxShape u) {
-  const unsigned base = blockIdx.x * (kThreads * kItems) + threadIdx.x;
+phasemax_bwd(const B* __restrict__ g, const uint8_t* __restrict__ win, B* __restrict__ gy,
+             PmaxShape u, unsigned n) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const unsigned o = t * V, hw = u.hw.d;
+  const unsigned plane = u.hw.div(o), p = o - plane * hw;  // plane b * C + c
+  const unsigned b = u.C1.div(plane), c = plane - b * u.C;
+  const size_t step = static_cast<size_t>(u.C) * hw;
+  B* dst = gy + (static_cast<size_t>(b) * 4 * u.C + c) * hw + p;
+  const Pack<B, V> gv = *reinterpret_cast<const Pack<B, V>*>(g + o);
+  const Pack<uint8_t, V> wv = *reinterpret_cast<const Pack<uint8_t, V>*>(win + o);
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) phasemax_bwd_item(base + it * kThreads, g, win, gy, u);
+  for (int ph = 0; ph < 4; ++ph) {
+    Pack<B, V> r;
+#pragma unroll
+    for (int k = 0; k < V; ++k) r.v[k] = wv.v[k] == ph ? gv.v[k] : B(0);
+    *reinterpret_cast<Pack<B, V>*>(dst + ph * step) = r;
+  }
 }
 
 // Blocks for n elements, or 0 where n is not a positive count below 2^31.
@@ -404,33 +533,62 @@ unsigned blocks(long long n) {
   return n <= 0 || n > 2147483647LL ? 0u : static_cast<unsigned>((n + per - 1) / per);
 }
 
+// A plan's launch shape fits a kernel: a whole number of warps, at most
+// kThreads a block, and exactly the blocks that `threads` need.
+bool fits(long long threads_needed, int threads, int nblocks) {
+  return threads_needed > 0 && threads > 0 && threads <= kThreads && threads % 32 == 0 &&
+         nblocks == (threads_needed + threads - 1) / threads;
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The upconv_fwd instance of T with runs of R outputs.
+template <typename T>
+void (*fwd_kernel(int R))(const T*, const T*, const T*, const T*, T*, FwdShape, int) {
+  constexpr int S = 16 / sizeof(T);  // outputs of 16 bytes
+  return R == 1 ? upconv_fwd<T, 1>
+         : R == S ? upconv_fwd<T, S> : R == 2 * S ? upconv_fwd<T, 2 * S> : upconv_fwd<T, 4 * S>;
+}
+
 }  // namespace
 
 extern "C" {
 
 // out [B, C, 2H, 2W] of y [B, 4C, H, W], qr [B, 6C, 2, W], qc [B, 6C, H, 2] and
-// bias [B / lane_rows, C], all of one type; relu != 0 applies the ReLU. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape the
-// kernel does not take.
+// bias [B / lane_rows, C], all of one type; relu != 0 applies the ReLU. The
+// launch plan gives `elems` (the outputs of a thread's run: 1, or 16, 32 or 64
+// bytes' worth in the vector variant), `threads` per block and `nblocks`.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape or a plan the kernel does not take.
 int livae_upconv_fwd(const void* y, const void* qr, const void* qc, const void* bias, void* out,
-                     int B, int C, int H, int W, int lane_rows, int relu, int is_bf16,
-                     void* stream) {
-  const unsigned nb = blocks(4LL * B * C * H * W);
-  if (B <= 0 || C <= 0 || H < 2 || W < 2 || lane_rows <= 0 || B % lane_rows || nb == 0) {
+                     int B, int C, int H, int W, int lane_rows, int relu, int is_bf16, int elems,
+                     int threads, int nblocks, void* stream) {
+  const int elem = is_bf16 ? 2 : 4, vec = 16 / elem;
+  if (B <= 0 || C <= 0 || H < 2 || W < 2 || lane_rows <= 0 || B % lane_rows ||
+      blocks(4LL * B * C * H * W) == 0 ||
+      (elems != 1 && elems != vec && elems != 2 * vec && elems != 4 * vec) ||
+      (elems > 1 &&
+       ((2 * W) % elems || !aligned(y, std::min(elems / 2 * elem, 16)) || !aligned(out, 16))) ||
+      !fits(1LL * B * C * (2 * (2 * W / std::min(elems, vec)) + (2 * H - 2) * (2 * W / elems)),
+            threads, nblocks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const UpShape u = up_shape(B, C, H, W, lane_rows);
+  const FwdShape u = fwd_shape(B, C, H, W, lane_rows, elems, std::min(elems, vec));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    upconv_fwd<T><<<nb, kThreads, 0, s>>>(
-        static_cast<const T*>(y), static_cast<const T*>(qr), static_cast<const T*>(qc),
-        static_cast<const T*>(bias), static_cast<T*>(out), u, relu);
+    const auto kernel = fwd_kernel<T>(elems);
+    kernel<<<nblocks, threads, 0, s>>>(static_cast<const T*>(y), static_cast<const T*>(qr),
+                                       static_cast<const T*>(qc), static_cast<const T*>(bias),
+                                       static_cast<T*>(out), u, relu);
   } else {
-    upconv_fwd<float><<<nb, kThreads, 0, s>>>(
-        static_cast<const float*>(y), static_cast<const float*>(qr),
-        static_cast<const float*>(qc), static_cast<const float*>(bias),
-        static_cast<float*>(out), u, relu);
+    using T = float;
+    const auto kernel = fwd_kernel<T>(elems);
+    kernel<<<nblocks, threads, 0, s>>>(static_cast<const T*>(y), static_cast<const T*>(qr),
+                                       static_cast<const T*>(qc), static_cast<const T*>(bias),
+                                       static_cast<T*>(out), u, relu);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -443,7 +601,7 @@ int livae_upconv_bwd(const void* g, const void* out, void* gy, void* gqr, void* 
   if (B <= 0 || C <= 0 || H < 2 || W < 2 || nb == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const UpShape u = up_shape(B, C, H, W, 1);
+  const UpShape u = up_shape(B, C, H, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using T = __nv_bfloat16;
@@ -482,22 +640,34 @@ int livae_phasemax_fwd(const void* y, const void* bias, void* out, void* win, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// g_y [B, 4C, h, w] of the cotangent g [B, C, h, w] and the winner map.
+// g_y [B, 4C, h, w] of the cotangent g [B, C, h, w] and the winner map; `elems`
+// (elements of g a thread takes: 1, or 16 bytes' worth in the vector variant),
+// `threads` and `nblocks` from the launch plan.
 int livae_phasemax_bwd(const void* g, const void* win, void* gy, int B, int C, int h, int w,
-                       int is_bf16, void* stream) {
-  const unsigned nb = blocks(4LL * B * C * h * w);
-  if (B <= 0 || C <= 0 || h <= 0 || w <= 0 || nb == 0) {
+                       int is_bf16, int elems, int threads, int nblocks, void* stream) {
+  const int vec = is_bf16 ? 8 : 4;
+  const long long n = static_cast<long long>(B) * C * h * w;
+  if (B <= 0 || C <= 0 || h <= 0 || w <= 0 || blocks(4 * n) == 0 ||
+      (elems != 1 && elems != vec) ||
+      (elems > 1 && ((h * w) % elems || !aligned(g, 16) || !aligned(gy, 16) ||
+                     !aligned(win, elems))) ||
+      !fits(n / elems, threads, nblocks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PmaxShape u = pmax_shape(B, C, h * w, 1);
+  const unsigned nt = static_cast<unsigned>(n / elems);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* wn = static_cast<const uint8_t*>(win);
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    phasemax_bwd<T><<<nb, kThreads, 0, s>>>(static_cast<const T*>(g), wn, static_cast<T*>(gy), u);
+    using Bits = uint16_t;
+    const auto kernel = elems == 1 ? phasemax_bwd<Bits, 1> : phasemax_bwd<Bits, 8>;
+    kernel<<<nblocks, threads, 0, s>>>(static_cast<const Bits*>(g), wn, static_cast<Bits*>(gy), u,
+                                       nt);
   } else {
-    phasemax_bwd<float><<<nb, kThreads, 0, s>>>(static_cast<const float*>(g), wn,
-                                                static_cast<float*>(gy), u);
+    using Bits = uint32_t;
+    const auto kernel = elems == 1 ? phasemax_bwd<Bits, 1> : phasemax_bwd<Bits, 4>;
+    kernel<<<nblocks, threads, 0, s>>>(static_cast<const Bits*>(g), wn, static_cast<Bits*>(gy), u,
+                                       nt);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,19 +42,27 @@ cotangent goes to the FIRST maximal phase in the order (0,0), (0,1), (1,0),
 launches the kernels and keeps the winning phase as a uint8 map (255 where
 relu's gradient is 0).
 
+`launch_plan` picks the variant of the epilogue's and the routing's kernels
+per call from the shape, the dtype and the pointers' alignment: the vector
+variant moves 16 to 64 bytes a thread in 16-byte accesses, the scalar one
+takes any width and alignment.
+
 Weights are cast to the compute dtype before the phase kernels are built, as
 the JAX layers do; the phase kernel then rounds as JAX's einsum does (one
 rounding after each of its two contractions).
 
 `UP_FWD_LAUNCHES`, `UP_BWD_LAUNCHES`, `PMAX_FWD_LAUNCHES` and
-`PMAX_BWD_LAUNCHES` count the kernels' launches; a lock keeps them exact when
-several threads launch.
+`PMAX_BWD_LAUNCHES` count the kernels' launches, and `VARIANT_LAUNCHES` the
+planned kernels' launches by variant ("upconv_fwd vector", ...); a lock keeps
+them exact when several threads launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -78,23 +86,32 @@ __all__ = [
     "phase_max_reference",
     "phase_max_vjp_reference",
     "PhaseMaxFunction",
+    "UpconvPlan",
+    "launch_plan",
+    "alignment",
     "UP_FWD_LAUNCHES",
     "UP_BWD_LAUNCHES",
     "PMAX_FWD_LAUNCHES",
     "PMAX_BWD_LAUNCHES",
+    "VARIANT_LAUNCHES",
 ]
 
 UP_FWD_LAUNCHES = 0
 UP_BWD_LAUNCHES = 0
 PMAX_FWD_LAUNCHES = 0
 PMAX_BWD_LAUNCHES = 0
+VARIANT_LAUNCHES: dict[str, int] = {}
 _COUNT_LOCK = threading.Lock()
 
 
-def _count_launch(name: str) -> None:
-    """Add one to the launch count `name` (one of the four above)."""
+def _count_launch(name: str, plan: "UpconvPlan | None" = None) -> None:
+    """Add one to the launch count `name` (one of the four above) and, for a
+    planned kernel, to its variant's count in VARIANT_LAUNCHES."""
     with _COUNT_LOCK:
         globals()[name] += 1
+        if plan is not None:
+            key = f"{plan.kernel} {plan.variant}"
+            VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 # Per-axis phase transforms A_p[s, a]: the coefficient of input tap s in
@@ -451,6 +468,157 @@ def fused_conv5_relu_maxpool(x: torch.Tensor, k5: torch.Tensor, b: torch.Tensor)
 # The kernels (ops/csrc/upconv.cu)
 # ---------------------------------------------------------------------------
 
+THREADS = 256  # per block (kThreads in ops/csrc/upconv.cu)
+VECTOR_BYTES = 16  # one access of a vector variant's thread
+# the longest run of a thread, in bytes: upconv_fwd's runs of 64, 32 or 16
+# bytes, the routing's of 16 (PERF.md, section 6: on the H100 the routing is
+# slower with 32, the epilogue fastest with the longest run that leaves the
+# launch MIN_BLOCKS blocks, about four waves of resident blocks on 132 SMs)
+RUN_BYTES = {"upconv_fwd": 64, "phasemax_bwd": 16}
+MIN_BLOCKS = 2048
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclass(frozen=True)
+class UpconvPlan:
+    """The launch of the epilogue's forward ("upconv_fwd": shape (B, C, H, W),
+    y [B, 4C, H, W] -> out [B, C, 2H, 2W]) or of the routing ("phasemax_bwd":
+    shape (B, C, h, w), g [B, C, h, w] -> g_y [B, 4C, h, w]).
+
+    variant "vector": a thread moves `elems_per_thread` consecutive elements
+    (16 bytes, or upconv_fwd 32 or 64) in accesses of up to 16 bytes:
+    upconv_fwd writes a run of that many outputs of one output row (rows 0
+    and 2H-1 in runs of at most 16 bytes), phasemax_bwd takes that many
+    elements of g and writes them to each of the four phase planes. "scalar":
+    one output (one element of g) per thread, any width and alignment.
+    `threads` per block, `blocks`, `smem` bytes of shared memory per block.
+    """
+
+    kernel: str
+    shape: tuple
+    dtype: torch.dtype
+    variant: str
+    elems_per_thread: int
+    threads: int
+    blocks: int
+    smem: int = 0
+
+    def writes(self) -> list[np.ndarray]:
+        """The flat indices into out (upconv_fwd) or g_y (phasemax_bwd) that
+        each thread writes, in thread order, mapped as the kernel maps them:
+        one [threads, elements] array per range of threads (upconv_fwd: rows 0
+        and 2H-1, then the others)."""
+        B, C, H, W = self.shape
+        n = self.elems_per_thread
+        if self.kernel == "phasemax_bwd":
+            hw = H * W
+            e = (np.arange(B * C * hw // n, dtype=np.int64) * n)[:, None] + np.arange(n)
+            plane, p = e // hw, e % hw
+            b, c = plane // C, plane % C
+            return [np.concatenate([((b * 4 + ph) * C + c) * hw + p for ph in range(4)], 1)]
+        H2, W2, planes = 2 * H, 2 * W, B * C
+        # rows 0 and 2H-1 of every plane, in runs of at most 16 bytes
+        nrow = _row_run(n, self.dtype)
+        nrr = W2 // nrow
+        t = np.arange(planes * 2 * nrr, dtype=np.int64)
+        r = t % (2 * nrr)
+        outer = ((t // (2 * nrr)) * H2 + np.where(r < nrr, 0, H2 - 1)) * W2 + r % nrr * nrow
+        # rows 1 .. 2H-2 of every plane, row by row, in runs of n
+        nr = W2 // n
+        t = np.arange(planes * (H2 - 2) * nr, dtype=np.int64)
+        r = t % ((H2 - 2) * nr)
+        mid = ((t // ((H2 - 2) * nr)) * H2 + 1 + r // nr) * W2 + r % nr * n
+        return [outer[:, None] + np.arange(nrow), mid[:, None] + np.arange(n)]
+
+
+def _row_run(n: int, dtype: torch.dtype) -> int:
+    """The run of upconv_fwd's rows 0 and 2H-1 where the others take runs of
+    n: at most 16 bytes (row_run in ops/csrc/upconv.cu)."""
+    return min(n, VECTOR_BYTES // _ELEM[dtype])
+
+
+def _threads(kernel: str, shape, dtype: torch.dtype, n: int) -> int:
+    """The threads of a launch with n elements a thread."""
+    B, C, H, W = shape
+    if kernel == "phasemax_bwd":
+        return B * C * H * W // n
+    return B * C * (2 * (2 * W // _row_run(n, dtype)) + (2 * H - 2) * (2 * W // n))
+
+
+def _needs(kernel: str, n: int, elem: int) -> tuple:
+    """The alignment in bytes each pointer needs for runs of n elements: (y,
+    out) for upconv_fwd, (g, win, g_y) for phasemax_bwd."""
+    if n == 1:
+        return (elem, elem) if kernel == "upconv_fwd" else (elem, 1, elem)
+    if kernel == "upconv_fwd":
+        return min(n // 2 * elem, VECTOR_BYTES), VECTOR_BYTES
+    return VECTOR_BYTES, n, VECTOR_BYTES
+
+
+def alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides t's data pointer."""
+    p = t.data_ptr()
+    return VECTOR_BYTES if p % VECTOR_BYTES == 0 else p & -p
+
+
+def launch_plan(kernel: str, shape, dtype: torch.dtype, align=None,
+                elems: int | None = None) -> UpconvPlan:
+    """The launch of `kernel` ("upconv_fwd" or "phasemax_bwd") on `shape`
+    (see UpconvPlan) in `dtype` (float32 or bfloat16).
+
+    `align`: the byte alignment (`alignment`) of the pointers the kernel
+    reads and writes in blocks, (y, out) for upconv_fwd and (g, win, g_y) for
+    phasemax_bwd; None for fresh allocations. The vector variant where every
+    output row (upconv_fwd: 2W) or plane (phasemax_bwd: h w) is a whole
+    number of runs of 16 bytes and every pointer is aligned to its accesses
+    (y to its loads, up to 16 bytes; win to one byte per element; the rest to
+    16), with the longest run up to RUN_BYTES that the shape and pointers take
+    and that leaves at least MIN_BLOCKS blocks, else the shortest; else the
+    scalar variant. `elems` picks the elements per thread by hand (1, or 16
+    bytes' worth up to RUN_BYTES); ValueError where the shape or the pointers
+    do not take it. Plans are cached: a step asks for the same few on every
+    launch.
+    """
+    return _launch_plan(kernel, tuple(int(d) for d in shape), dtype,
+                        None if align is None else tuple(align), elems)
+
+
+@functools.lru_cache(maxsize=512)
+def _launch_plan(kernel: str, shape: tuple, dtype: torch.dtype, align, elems) -> UpconvPlan:
+    if kernel not in RUN_BYTES:
+        raise ValueError(f"launch_plan plans upconv_fwd or phasemax_bwd, got {kernel!r}")
+    if dtype not in _ELEM:
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got {dtype}")
+    B, C, H, W = shape
+    if kernel == "upconv_fwd" and (min(B, C) < 1 or min(H, W) < 2):
+        raise ValueError(f"upconv_fwd needs B, C >= 1 and H, W >= 2, got {list(shape)}")
+    if kernel == "phasemax_bwd" and min(shape) < 1:
+        raise ValueError(f"phasemax_bwd needs a non-empty [B, C, h, w], got {list(shape)}")
+    elem = _ELEM[dtype]
+    npointers = 2 if kernel == "upconv_fwd" else 3
+    align = (VECTOR_BYTES,) * npointers if align is None else align
+    if len(align) != npointers:
+        raise ValueError(f"{kernel}: one alignment for each of its {npointers} pointers, "
+                         f"got {align}")
+    width = 2 * W if kernel == "upconv_fwd" else H * W
+
+    def takes(n: int) -> bool:
+        return width % n == 0 and all(a % k == 0 for a, k in zip(align, _needs(kernel, n, elem)))
+
+    runs = [nbytes // elem for nbytes in (64, 32, 16) if nbytes <= RUN_BYTES[kernel]]
+    if elems is not None:
+        if elems not in (1, *runs) or not takes(elems):
+            raise ValueError(f"{kernel} {list(shape)} {dtype} with alignments {align} does not "
+                             f"take {elems} elements a thread")
+        n = elems
+    else:
+        fit = [k for k in runs if takes(k)]
+        n = next((k for k in fit if _threads(kernel, shape, dtype, k) >= MIN_BLOCKS * THREADS),
+                 fit[-1] if fit else 1)
+    return UpconvPlan(kernel, shape, dtype, "vector" if n > 1 else "scalar", n, THREADS,
+                      -(-_threads(kernel, shape, dtype, n) // THREADS))
+
+
 _SIGNED = False
 
 
@@ -459,10 +627,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("upconv")
     if not _SIGNED:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.livae_upconv_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.livae_upconv_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         lib.livae_upconv_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.livae_phasemax_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.livae_phasemax_bwd.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.livae_phasemax_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
         for fn in (lib.livae_upconv_fwd, lib.livae_upconv_bwd, lib.livae_phasemax_fwd,
                    lib.livae_phasemax_bwd):
             fn.restype = i
@@ -493,7 +661,9 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_upconv_fwd(y, qr, qc, bias, relu: bool) -> torch.Tensor:
+def _launch_upconv_fwd(y, qr, qc, bias, relu: bool, elems: int | None = None) -> torch.Tensor:
+    """out of the epilogue; `elems` picks the plan's elements per thread
+    (launch_plan)."""
     _check("upconv", y, qr, qc, bias)
     B, C4, H, W = y.shape
     C = C4 // 4
@@ -503,13 +673,16 @@ def _launch_upconv_fwd(y, qr, qc, bias, relu: bool) -> torch.Tensor:
     bias, rows = _lanes(B, bias, C)
     y, qr, qc = y.contiguous(), qr.contiguous(), qc.contiguous()
     out = torch.empty((B, C, 2 * H, 2 * W), dtype=y.dtype, device=y.device)
+    plan = launch_plan("upconv_fwd", (B, C, H, W), y.dtype, (alignment(y), alignment(out)),
+                       elems)
     with torch.cuda.device(y.device):
         err = _lib().livae_upconv_fwd(y.data_ptr(), qr.data_ptr(), qc.data_ptr(), bias.data_ptr(),
                                       out.data_ptr(), B, C, H, W, rows, int(relu),
-                                      int(y.dtype == torch.bfloat16), _stream(y))
+                                      int(y.dtype == torch.bfloat16), plan.elems_per_thread,
+                                      plan.threads, plan.blocks, _stream(y))
     if err != 0:
-        raise RuntimeError(f"upconv forward kernel launch failed: CUDA error {err}")
-    _count_launch("UP_FWD_LAUNCHES")
+        raise RuntimeError(f"upconv forward kernel launch failed: CUDA error {err} ({plan})")
+    _count_launch("UP_FWD_LAUNCHES", plan)
     return out
 
 
@@ -554,19 +727,24 @@ def _launch_pmax_fwd(y, bias):
     return out, win
 
 
-def _launch_pmax_bwd(g, win):
+def _launch_pmax_bwd(g, win, elems: int | None = None):
+    """g_y of the routing; `elems` picks the plan's elements per thread
+    (launch_plan)."""
     _check("phase max", g)
     if win.shape != g.shape or win.dtype != torch.uint8 or win.device != g.device:
         raise ValueError("phase max backward: the winner map must be uint8 like the cotangent")
     B, C, h, w = g.shape
     g, win = g.contiguous(), win.contiguous()
     gy = torch.empty((B, 4 * C, h, w), dtype=g.dtype, device=g.device)
+    plan = launch_plan("phasemax_bwd", (B, C, h, w), g.dtype,
+                       (alignment(g), alignment(win), alignment(gy)), elems)
     with torch.cuda.device(g.device):
         err = _lib().livae_phasemax_bwd(g.data_ptr(), win.data_ptr(), gy.data_ptr(), B, C, h, w,
-                                        int(g.dtype == torch.bfloat16), _stream(g))
+                                        int(g.dtype == torch.bfloat16), plan.elems_per_thread,
+                                        plan.threads, plan.blocks, _stream(g))
     if err != 0:
-        raise RuntimeError(f"phase max backward kernel launch failed: CUDA error {err}")
-    _count_launch("PMAX_BWD_LAUNCHES")
+        raise RuntimeError(f"phase max backward kernel launch failed: CUDA error {err} ({plan})")
+    _count_launch("PMAX_BWD_LAUNCHES", plan)
     return gy
 
 

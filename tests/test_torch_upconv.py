@@ -291,3 +291,130 @@ def test_cpu_takes_the_plain_versions_and_the_functions_need_cuda(monkeypatch):
                                torch.zeros(1, 6, 2, 2), torch.zeros(1, 1), False)
     with pytest.raises(ValueError, match="CUDA"):
         U.PhaseMaxFunction.apply(torch.zeros(1, 4, 2, 2), torch.zeros(1, 1))
+
+
+# The launch plans' shapes: the main path's four decoder stages (B, C_out, H, W)
+# at batch 512 and two STN blocks (B, C_out, h, w) on the [1024] pair, and the
+# edge shapes chip_smoke.py holds on the card (widths that are no whole number
+# of 16-byte runs, runs that are a whole output row, one-pixel maps)
+PLAN_MAIN = [("upconv_fwd", s) for s in ((512, 128, 8, 8), (512, 64, 16, 16),
+                                         (512, 32, 32, 32), (512, 1, 64, 64))] + \
+            [("phasemax_bwd", s) for s in ((1024, 16, 64, 64), (1024, 32, 32, 32))]
+PLAN_EDGE = [("upconv_fwd", s) for s in ((3, 4, 2, 2), (3, 1, 5, 7), (2, 3, 2, 9), (2, 2, 3, 4),
+                                         (2, 2, 4, 12))] + \
+            [("phasemax_bwd", s) for s in ((3, 1, 2, 2), (3, 4, 2, 6), (2, 3, 1, 1), (2, 3, 4, 8))]
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
+
+
+# the bytes of a thread's run the plan picks at the main path's shapes (bf16,
+# f32): the longest run that the width takes and that leaves MIN_BLOCKS blocks
+MAIN_RUN_BYTES = {(512, 128, 8, 8): (32, 64), (512, 64, 16, 16): (64, 64),
+                  (512, 32, 32, 32): (64, 64), (512, 1, 64, 64): (32, 64),
+                  (1024, 16, 64, 64): (16, 16), (1024, 32, 32, 32): (16, 16)}
+
+
+def _offset_align(kernel, dtype):
+    """Every pointer of a view one element into its storage (chip_smoke.py's
+    offset views; the wrapper's output stays a fresh allocation)."""
+    e = _ELEM[dtype]
+    return (e, 16) if kernel == "upconv_fwd" else (e, 1, 16)
+
+
+def _want_elems(kernel, shape, dtype, offset):
+    """The run the plan should pick: one element wherever the pointers are
+    misaligned; MAIN_RUN_BYTES at the main path's shapes; at the small edge
+    shapes (under MIN_BLOCKS blocks) the shortest vector run, 16 bytes, where
+    the row (2W) or plane (h w) holds a whole number of them; else one."""
+    if offset:
+        return 1
+    if shape in MAIN_RUN_BYTES:
+        return MAIN_RUN_BYTES[shape][dtype == torch.float32] // _ELEM[dtype]
+    width = 2 * shape[3] if kernel == "upconv_fwd" else shape[2] * shape[3]
+    n = 16 // _ELEM[dtype]
+    return n if width % n == 0 else 1
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel,shape", PLAN_MAIN + PLAN_EDGE,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_launch_plan_picks_the_variant(kernel, shape, dtype, offset):
+    """The main path's shapes take the vector variant (runs of RUN_BYTES) on
+    aligned tensors; a ragged width takes shorter runs or the scalar variant,
+    and a view one element into its storage the scalar variant; threads and
+    blocks cover the work."""
+    align = _offset_align(kernel, dtype) if offset else None
+    plan = U.launch_plan(kernel, shape, dtype, align)
+    n = _want_elems(kernel, shape, dtype, offset)
+    assert (plan.variant, plan.elems_per_thread) == ("vector" if n > 1 else "scalar", n)
+    if (kernel, shape) in PLAN_MAIN and not offset:
+        assert plan.variant == "vector" and plan.blocks >= U.MIN_BLOCKS
+    assert plan.threads == U.THREADS and plan.smem == 0
+    n_threads = U._threads(kernel, shape, dtype, n)
+    assert (plan.blocks - 1) * plan.threads < n_threads <= plan.blocks * plan.threads
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel,shape", PLAN_MAIN + PLAN_EDGE,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_launch_plan_writes_every_output_once(kernel, shape, dtype, offset):
+    """Enumerated from the plan's own fields as the kernel maps its threads,
+    the runs write every element of out (upconv_fwd) or g_y (phasemax_bwd)
+    exactly once, each thread a run of elems_per_thread consecutive elements
+    (of at most 16 bytes in upconv_fwd's rows 0 and 2H-1). The main path's
+    batch is cut to 2: a thread's place depends on B only through the count of
+    planes."""
+    shape = (min(shape[0], 2),) + shape[1:]
+    align = _offset_align(kernel, dtype) if offset else None
+    plan = U.launch_plan(kernel, shape, dtype, align)
+    runs = plan.writes()
+    B, C, H, W = shape
+    written = np.concatenate([r.ravel() for r in runs])
+    assert written.min() == 0 and np.array_equal(np.bincount(written), np.ones(4 * B * C * H * W))
+    assert sum(len(r) for r in runs) == U._threads(kernel, shape, dtype, plan.elems_per_thread)
+    n = plan.elems_per_thread
+    for r in runs:
+        step = 1 if kernel == "upconv_fwd" else H * W  # a phase's elements lie h w apart
+        k = min(n, 16 // _ELEM[dtype]) if kernel == "upconv_fwd" and r is runs[0] else n
+        assert r.shape[1] == (k if kernel == "upconv_fwd" else 4 * n)
+        run = r[:, :k]
+        assert (np.diff(run, axis=1) == 1).all() and (run[:, 0] % k == 0).all()
+        if kernel == "phasemax_bwd":
+            assert (r[:, k:2 * k] - run == step * C).all()
+
+
+def test_launch_plan_refuses_what_the_kernels_do_not_take():
+    """Elements a thread that the shape or the pointers do not take, another
+    kernel, dtype or shape: ValueError or TypeError, never a quiet fallback."""
+    bf = torch.bfloat16
+    assert U.launch_plan("upconv_fwd", (2, 4, 8, 8), bf, elems=8).elems_per_thread == 8
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_fwd", (2, 4, 8, 9), bf, elems=8)  # 2W = 18
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_fwd", (2, 4, 8, 8), bf, (8, 16), elems=16)  # y needs 16 bytes
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_fwd", (2, 4, 8, 8), bf, elems=32)  # 2W = 16: no run of 32
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("phasemax_bwd", (2, 4, 8, 8), bf, (16, 4, 16), elems=8)  # win: 8 bytes
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("phasemax_bwd", (2, 4, 8, 8), bf, elems=16)  # the routing's runs: 16 B
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("phasemax_bwd", (2, 4, 8, 8), bf, elems=3)
+    assert U.launch_plan("upconv_fwd", (2, 4, 8, 8), bf, (8, 16)).elems_per_thread == 8
+    with pytest.raises(ValueError, match="plans"):
+        U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf)
+    with pytest.raises(TypeError):
+        U.launch_plan("upconv_fwd", (2, 4, 8, 8), torch.float16)
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        U.launch_plan("upconv_fwd", (2, 4, 1, 8), bf)
+    with pytest.raises(ValueError, match="alignment"):
+        U.launch_plan("phasemax_bwd", (2, 4, 8, 8), bf, (16, 16))
+
+
+def test_alignment_reads_the_pointer():
+    """A tensor's alignment is the largest power of two up to 16 dividing its
+    data pointer: a fresh allocation 16, a view k elements in less."""
+    base = torch.empty(64, dtype=torch.bfloat16)
+    assert U.alignment(base) == 16
+    assert [U.alignment(base[k:]) for k in (1, 2, 4, 8, 16)] == [2, 4, 8, 16, 16]
