@@ -29,14 +29,14 @@ Run from the repository root:  python3 chip_smoke.py
      shapes (n = 2, C_out = 1, rectangular, one-pixel maps), in bf16 and f32
      with TF32 off, against the plain versions and autograd through them
      (forwards, g_y and the routing bit-equal; a tie-heavy case for P), the
-     epilogue's forward and the routing also in every variant the shape
-     takes and on views one element (and, for y, 8 bytes) into their
+     epilogue's forward and adjoint and the routing also in every variant
+     the shape takes and on views one element and 8 bytes into their
      storage (the scalar variant, shorter runs); the launch plan's vector
      variant at every main-path shape; the whole fused stage and block
      against the unfused chains in f32; times in bf16 beside the plain
      versions, a copy_ of the same bytes, the unfused chain and the whole
      fused stage or block, each variant's time, and the last stage's
-     forward with L2 flushed before each call; one stage's and one block's
+     forward and adjoint with L2 flushed before each call; one stage's and one block's
      launches both ways.
 4. Agreement phase: the f32 model on the card (kernels) against the same
    weights on the CPU (plain versions, which tests/test_torch_*.py hold
@@ -152,8 +152,8 @@ Run from the repository root:  python3 chip_smoke.py
 Around each driven path the launch counters are zeroed just before and read
 just after (a sweep's processes report their own); every RVAE decoder pass
 adds 4 upconv launches each way, every STN localisation pass 2 phase-max
-launches each way, and on the main path every epilogue forward and routing
-launch takes the vector variant. A `phase_seconds` line
+launches each way, and on the main path every epilogue launch (forward and
+adjoint) and routing launch takes the vector variant. A `phase_seconds` line
 gives each phase's wall-clock seconds. The build step prints each kernel's registers and spills (ptxas);
 the rot3 phase prints each cluster size's time, shared memory per block,
 resident clusters and share of the bound. Then it prints one
@@ -631,15 +631,19 @@ def _elems_options(kernel: str, dtype) -> tuple:
 
 
 def _plan(kernel: str, *tensors, elems=None):
-    """The launch plan the wrapper makes for these tensors: (y, out) or (g,
-    win, g_y); an output not given is a fresh allocation."""
+    """The launch plan the wrapper makes for these tensors: (y, out), (g, out,
+    g_y) or (g, win, g_y); an output not given, or None (upconv_bwd's out of a
+    stage without a ReLU), is a fresh allocation."""
     t = tensors[0]
     if kernel == "upconv_fwd":
         B, C4, H, W = t.shape
         shape = (B, C4 // 4, H, W)
+    elif kernel == "upconv_bwd":
+        B, C, H2, W2 = t.shape
+        shape = (B, C, H2 // 2, W2 // 2)
     else:
         shape = tuple(t.shape)
-    align = [UP.alignment(x) for x in tensors]
+    align = [16 if x is None else UP.alignment(x) for x in tensors]
     align += [16] * ((2 if kernel == "upconv_fwd" else 3) - len(align))
     return UP.launch_plan(kernel, shape, t.dtype, align, elems)
 
@@ -692,10 +696,12 @@ def _sum_tol(ref, g) -> float:
 
 def _upconv_errors(B, C, H, W, relu, dtype, gen):
     """The U kernels against the plain epilogue and autograd through it, on
-    random phase maps and projected lines: errors, tolerances and the
-    forward's launch plans. The forward also in every variant the shape takes
-    (fwd_variants) and on copies of y one element and 8 bytes into their
-    storage (fwd_offset: the scalar variant, and runs of 16 bytes)."""
+    random phase maps and projected lines: errors, tolerances and the launch
+    plans (the forward's, then the adjoint's). Each also in every variant the
+    shape takes (fwd_variants; gy_, gqr_, gqc_variants) and on copies of its
+    input one element and 8 bytes into their storage (fwd_offset: y, the
+    scalar variant and runs of 16 bytes; gy_, gqr_, gqc_offset: g and out,
+    the scalar variant)."""
     dev = gen.device
 
     def rnd(*shape, s=1.0):
@@ -712,7 +718,13 @@ def _upconv_errors(B, C, H, W, relu, dtype, gen):
     ins = [t.clone().requires_grad_(True) for t in (y, qr, qc, bias)]
     ref = UP.upconv_epilogue_reference(*ins, relu)
     gref = torch.autograd.grad(ref, ins, g)
-    gy, gqr, gqc = UP._launch_upconv_bwd(g, out if relu else None)
+    mask = out if relu else None
+    gy, gqr, gqc = UP._launch_upconv_bwd(g, mask)
+    bwds = [UP._launch_upconv_bwd(g, mask, n) for n in _elems_options("upconv_bwd", dtype)
+            if _takes("upconv_bwd", n, g, mask)]
+    g_offs = [(_offset(g, k), None if mask is None else _offset(mask, k))
+              for k in (1, 8 // g.element_size())]
+    bwds_off = [UP._launch_upconv_bwd(*t) for t in g_offs]
     ins_k = [t.clone().requires_grad_(True) for t in (y, qr, qc, bias)]
     gk = torch.autograd.grad(UP.UpconvFunction.apply(*ins_k, relu), ins_k, g)
     torch.cuda.synchronize()
@@ -722,9 +734,15 @@ def _upconv_errors(B, C, H, W, relu, dtype, gen):
     check(plans[1].variant == "scalar", f"y one element into its storage took {plans[1]}")
     check(plans[2].elems_per_thread in (1, VECTOR_ELEMS[dtype]),
           f"y 8 bytes into its storage took {plans[2]}")
+    plans += [_plan("upconv_bwd", *t) for t in [(g, mask)] + g_offs]
+    check(all(pl.variant == "scalar" for pl in plans[-2:]),
+          f"g and out 1 element and 8 bytes into their storage took {plans[-2:]}")
     e = {"fwd": _err(out, ref), "fwd_variants": max(_err(o, ref) for o in outs),
          "fwd_offset": max(_err(o, ref) for o in outs_off), "gy": _err(gy, gref[0]),
          "gqr": _err(gqr, gref[1]), "gqc": _err(gqc, gref[2]), "gbias": _err(gk[3], gref[3])}
+    for name, runs in (("variants", bwds), ("offset", bwds_off)):
+        for k, (part, want) in enumerate(zip(("gy", "gqr", "gqc"), gref)):
+            e[f"{part}_{name}"] = max(_err(r[k], want) for r in runs)
     u = ULP[dtype]
     # the forward and g_y are held bit-equal (the kernel does the plain
     # version's f32 operations in its order); g_qr and g_qc sum up to six
@@ -732,6 +750,8 @@ def _upconv_errors(B, C, H, W, relu, dtype, gen):
     tol = {"fwd": 0.0, "fwd_variants": 0.0, "fwd_offset": 0.0, "gy": 0.0,
            "gqr": u * _scale(gref[1]),
            "gqc": u * _scale(gref[2]), "gbias": _sum_tol(gref[3], g)}
+    for name in ("variants", "offset"):
+        tol.update({f"gy_{name}": 0.0, f"gqr_{name}": tol["gqr"], f"gqc_{name}": tol["gqc"]})
     return e, tol, plans
 
 
@@ -870,7 +890,8 @@ def upconv_kernel_phase():
     err = {k: 0.0 for k in ("upconv_fwd", "upconv_bwd", "phasemax_fwd", "phasemax_bwd")}
     # the plan at the main path's shapes (fresh, aligned tensors): the vector variant
     for dtype in (torch.bfloat16, torch.float32):
-        for kernel, shape in [("upconv_fwd", (B, C, H, W)) for B, _, H, W, C in UP_STAGES] + \
+        for kernel, shape in [(k, (B, C, H, W)) for B, _, H, W, C in UP_STAGES
+                              for k in ("upconv_fwd", "upconv_bwd")] + \
                              [("phasemax_bwd", (B, C, H // 2, W // 2))
                               for B, _, H, W, C in PMAX_BLOCKS]:
             plan = UP.launch_plan(kernel, shape, dtype)
@@ -884,11 +905,15 @@ def upconv_kernel_phase():
                 print(f"upconv {what}: " + ", ".join(
                     f"{k} {e[k]:.3e} (tol {tol[k]:.1e})" for k in e)
                     + "; fwd " + " / offset ".join(f"{p.variant} {p.elems_per_thread}"
-                                                  for p in plans))
+                                                  for p in plans[:3])
+                    + "; bwd " + " / offset ".join(f"{p.variant} {p.elems_per_thread}"
+                                                  for p in plans[3:]))
                 for k in e:
                     check(e[k] <= tol[k], f"upconv {k} {what}: {e[k]} > {tol[k]}")
                 err["upconv_fwd"] = max(err["upconv_fwd"], e["fwd"], e["fwd_offset"])
-                err["upconv_bwd"] = max(err["upconv_bwd"], e["gy"], e["gqr"], e["gqc"])
+                err["upconv_bwd"] = max(err["upconv_bwd"], *(
+                    e[f"{part}{name}"] for part in ("gy", "gqr", "gqc")
+                    for name in ("", "_variants", "_offset")))
     for B, _, H, W, C in PMAX_BLOCKS + PMAX_EDGE:
         for dtype in (torch.bfloat16, torch.float32):
             for ties in (False, True):
@@ -944,12 +969,22 @@ def upconv_kernel_phase():
             fwd["cold_ms"] = cold_ms(lambda: UP._launch_upconv_fwd(y, qr, qc, bias, relu))
             print(f"upconv_fwd bf16 stage {i}: warm L2 {fwd['ms']:.4f} ms, L2 flushed before "
                   f"each call {fwd['cold_ms']:.4f} ms")
-        bwd = {"ms": median_ms(lambda: UP._launch_upconv_bwd(g, out if relu else None),
-                               lead=True),
+        mask = out if relu else None
+        bwd = {"ms": median_ms(lambda: UP._launch_upconv_bwd(g, mask), lead=True),
                "plain_ms": median_ms(lambda: torch.autograd.grad(ref, ins, g, retain_graph=True),
                                      reps=3),
                "unfused_ms": median_ms(lambda: torch.autograd.grad(old, xs, g, retain_graph=True)),
                "stage_ms": median_ms(lambda: torch.autograd.grad(new, xs, g, retain_graph=True))}
+        plan = _plan("upconv_bwd", g, mask)
+        bwd.update(variant=plan.variant, elems_per_thread=plan.elems_per_thread,
+                   planes_per_block=plan.planes_per_block, elems_ms={
+                       n: median_ms(lambda: UP._launch_upconv_bwd(g, mask, n), lead=True)
+                       for n in _elems_options("upconv_bwd", bf)
+                       if _takes("upconv_bwd", n, g, mask)})
+        if i == len(UP_STAGES) - 1:  # 35 MB, under the L2: with L2 flushed before each call
+            bwd["cold_ms"] = cold_ms(lambda: UP._launch_upconv_bwd(g, mask))
+            print(f"upconv_bwd bf16 stage {i}: warm L2 {bwd['ms']:.4f} ms, L2 flushed before "
+                  f"each call {bwd['cold_ms']:.4f} ms")
         for k, d in (("upconv_fwd", fwd), ("upconv_bwd", bwd)):
             nbytes = _bytes(k, (B, Cin, H, W, C), 2, relu)
             d.update(shape=[B, Cin, H, W, C], relu=relu, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1038,7 +1073,7 @@ def upconv_kernel_phase():
     check(launches["stage_fused_fwd"] < launches["stage_unfused_fwd"],
           f"the fused stage's forward launches {launches['stage_fused_fwd']} kernels, the "
           f"unfused {launches['stage_unfused_fwd']}")
-    for k in ("upconv_fwd", "phasemax_bwd"):
+    for k in ("upconv_fwd", "upconv_bwd", "phasemax_bwd"):
         check(all(c["variant"] == "vector" for c in cases[k]),
               f"{k} took the scalar variant at a main path shape: {cases[k]}")
     ms = {k: sum(c["ms"] for c in v) for k, v in cases.items()}
@@ -1157,6 +1192,7 @@ def main_path(ds, build_s: float):
           f"main path launches {launches}")
     # every planned launch of the main path takes the vector variant
     check(variants == {"upconv_fwd vector": launches["upconv_fwd"],
+                       "upconv_bwd vector": launches["upconv_bwd"],
                        "phasemax_bwd vector": launches["phasemax_bwd"]},
           f"main path variants {variants}")
 

@@ -48,10 +48,32 @@
 // (a row's first and last run add the one column correction of their outer
 // element).
 //
-// upconv_bwd. One launch, three groups of planes: g_y (the cotangent gathered
-// back to phase space, masked by the ReLU where the saved output is given), and
-// g_qr, g_qc (each projected-line entry sums the few output cotangents whose
-// line operator reads it, at most six, and the corner terms).
+// upconv_bwd <- the backward of fused_upsample_reflect_conv (upconv.py:124),
+// which XLA derives there: g_y [B, 4C, H, W] (the cotangent g [B, C, 2H, 2W]
+// gathered back to phase space, masked by the ReLU where the saved output is
+// given: g's bits where out > 0, else +0), and g_qr [B, 6C, 2, W], g_qc
+// [B, 6C, H, 2] (each projected-line entry sums the few masked cotangents of
+// its line that the line operator reads it for, at most six, and the corner
+// terms; the other side's line of each channel is written as zeros, which the
+// edge convolutions' backward reads). A block owns P whole output planes
+// (b, c) (the launch plan picks P, so that a block holds about one run a
+// thread; one plane at the larger maps, whose threads loop over its rows).
+// Its threads take runs of R consecutive elements of one output row 2i+p in
+// 16-byte loads of g (and of out where the stage has a ReLU), consecutive
+// threads on consecutive runs so that a warp reads whole rows once; each
+// masks its run in registers and writes its R / 2 even columns to row i of
+// phase plane (p, 0) and its odd ones to (p, 1), in stores of 8 or 16 bytes,
+// the index arithmetic paid once per run. Meanwhile the block keeps each
+// plane's masked rows 0 and 2H-1 and columns 0 and 2W-1 in shared memory, in
+// f32 (16 (H + W) bytes a plane); after one barrier a thread takes one
+// position of one outer line for one tap and writes its entry of g_qr or g_qc
+// from there (line_adjoint: the adjoint of line_op in closed form, and the
+// corner terms), and a zero to the other line's same place. So g and out
+// are read once, and no column is walked down in device memory. The vector
+// variant needs 2W a multiple of R, g and out 16-byte aligned, g_y aligned to
+// its stores and g_qc to two elements (its pairs); the scalar variant (R = 1,
+// one element at a time) takes any width and alignment. g_y is bit-equal to the
+// plain version, g_qr and g_qc within one rounding.
 //
 // phasemax_fwd. y [B, 4C, h, w], one thread per output element: the four
 // phases' relu(round(y + b)) (the sum rounded to the I/O type, as the plain
@@ -72,17 +94,25 @@
 // Bound on the H100: a few f32 operations per element against 4 (bf16) or 8
 // (f32) bytes of I/O, so every kernel is bound by memory. upconv_fwd reads y
 // and writes out (the same count), plus the small qr, qc and bias; at batch 512
-// in bf16 the decoder's four stages move 80, 147, 281 and 34 MB. phasemax_fwd
-// reads 4 elements per output and writes one and a byte. upconv_bwd and
-// phasemax_fwd are the simple design: each thread takes 4 elements a
+// in bf16 the decoder's four stages move 80, 147, 281 and 34 MB. upconv_bwd
+// reads g and (stages 0-2) out and writes g_y (the same count) and the whole of
+// g_qr and g_qc: 126, 226, 428 and 35 MB, 0.2434 ms a decoder backward at 3.35
+// TB/s. phasemax_fwd reads 4 elements per output and writes one and a byte.
+// phasemax_fwd is the simple design: each thread takes 4 elements a
 // block-width apart, consecutive threads on consecutive outputs, divisions as
 // multiplies and shifts. With 2-byte accesses one element at a time that design
-// reached 13-18 % of the bound for upconv_fwd and 23 % for phasemax_bwd
-// (chip_smoke.py, H100 80GB HBM3, 700 W): a warp's access moved 64 bytes, every
-// element paid its own index arithmetic, and phasemax_bwd read g and win once
-// per phase. So those two move 16 to 64 bytes a thread in 16-byte accesses and
-// pay the index arithmetic once per run: 65 % and 87 % of the bound at batch
-// 512 (the same script and card).
+// reached 13-18 % of the bound for upconv_fwd, 20.5 % for upconv_bwd and 23 %
+// for phasemax_bwd (chip_smoke.py, H100 80GB HBM3, 700 W): a warp's access
+// moved 64 bytes, every element paid its own index arithmetic, phasemax_bwd
+// read g and win once per phase, and upconv_bwd read g at stride 2, each
+// sector once for each of its two phase planes, and walked the outer columns
+// down in device memory for g_qc. So those three
+// move 16 to 64 bytes a thread in 16-byte accesses and pay the index
+// arithmetic once per run: upconv_fwd 65 %, upconv_bwd 86 % with a warm L2
+// and 81-83 % with the last stage's 35 MB cold, as in a train step (0.2829 to
+// 0.2840 ms a decoder backward, from 1.18: its outer lines from shared memory,
+// one tap of one position a thread) and phasemax_bwd 87 % of the bound at
+// batch 512 (the same script and card).
 
 #include <algorithm>
 #include <cstdint>
@@ -93,6 +123,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// A block's most shared memory on the H100 (227 KB)
+constexpr int kMaxSmem = 232448;
 // upconv_fwd's blocks per SM: at most 48 registers a thread, which the runs of
 // 32 bytes need to keep 1280 threads' loads in flight (measured on the H100)
 constexpr int kFwdBlocks = 5;
@@ -149,13 +181,6 @@ __device__ float line_op(const Line<T>& L, int J) {
   return s;
 }
 
-// d line_op(J) / d P(a, m).
-__device__ __forceinline__ float line_coef(int J, int a, int m, int n) {
-  int k, k2;
-  taps(refl(J + a - 1, n), n, k, k2);
-  return (k == m ? 0.75f : 0.f) + (k2 == m ? 0.25f : 0.f);
-}
-
 // 0.25 (P(a, j1) - P(a, j0)): a corner term.
 template <typename T>
 __device__ __forceinline__ float corner(const Line<T>& L, int a, int j1, int j0) {
@@ -179,17 +204,6 @@ FastDiv fast_div(unsigned d) {
   while ((1u << s) < d) ++s;
   const unsigned long long one = 1;
   return {d, static_cast<unsigned>(((one << 32) * ((one << s) - d)) / d + 1), s};
-}
-
-// The extents of an upconv_bwd launch: B, C, H, W and their divisors.
-struct UpShape {
-  int B, C, H, W;
-  FastDiv C1, C3, C4, C6, W1, hw, len_r, len_c;
-};
-
-UpShape up_shape(int B, int C, int H, int W) {
-  return {B, C, H, W, fast_div(C), fast_div(3 * C), fast_div(4 * C), fast_div(6 * C),
-          fast_div(W), fast_div(H * W), fast_div(2 * W), fast_div(2 * H)};
 }
 
 // A type's bits, and their conversions to and from f32: a bf16 is the top half
@@ -376,84 +390,169 @@ upconv_fwd(const T* __restrict__ y, const T* __restrict__ qr, const T* __restric
   }
 }
 
-// The output cotangent at pixel (I, J) of the plane starting at gp, masked by
-// the ReLU where out is given.
-template <typename T>
-__device__ __forceinline__ float g_pre(const T* g, const T* out, size_t gp, int W2, int I,
-                                       int J) {
-  const size_t k = gp + static_cast<size_t>(I) * W2 + J;
-  const float v = ld(g, k);
-  return (out != nullptr && !(ld(out, k) > 0.f)) ? 0.f : v;
+// The extents of an upconv_bwd launch whose threads take runs of R elements of
+// g and whose blocks own `planes` consecutive output planes (b * C + c) each:
+// the runs of a block's planes (n_runs; runs_plane a plane's, nr a row's) and
+// the items of their outer lines (n_qr of g_qr, n_qc of g_qc; an item is one
+// position m of one channel (k, a) of one plane: qr_ch the items of a channel
+// over the block's planes, qr_m those of one plane).
+struct BwdShape {
+  int C, H, W;
+  unsigned planes, n_planes, n_runs, n_qr, n_qc;
+  FastDiv C1, nr, runs_plane, qr_ch, qr_m, qc_ch, qc_m;
+};
+
+BwdShape bwd_shape(int B, int C, int H, int W, int R, int planes) {
+  const unsigned nr = 2 * W / R, P = planes;
+  return {C, H, W, P, static_cast<unsigned>(B) * C, P * 2 * H * nr, 6 * P * W, 6 * P * H,
+          fast_div(C), fast_div(nr), fast_div(2 * H * nr), fast_div(P * W), fast_div(W),
+          fast_div(P * H), fast_div(H)};
 }
 
-// Three ranges of threads: g_y [B, 4C, H, W], then g_qr [B, 6C, 2, W] (the lines
-// k = 0, 1 of channel (k, a, c)), then g_qc [B, 6C, H, 2].
-template <typename T>
-__device__ __forceinline__ void upconv_bwd_item(unsigned idx, const T* __restrict__ g,
-                                                const T* __restrict__ out, T* __restrict__ gy,
-                                                T* __restrict__ gqr, T* __restrict__ gqc,
-                                                const UpShape& u) {
-  const int C = u.C, H = u.H, W = u.W, H2 = 2 * H, W2 = 2 * W;
-  const unsigned n_y = static_cast<unsigned>(u.B) * 4 * C * H * W;
-  const unsigned n_r = static_cast<unsigned>(u.B) * 6 * C * 2 * W;
-  const unsigned n_c = static_cast<unsigned>(u.B) * 6 * C * 2 * H;
-  if (idx < n_y) {
-    const unsigned plane = u.hw.div(idx), p = idx - plane * u.hw.d;
-    const unsigned b = u.C4.div(plane), r = plane - b * u.C4.d;
-    const unsigned ph = u.C1.div(r), c = r - ph * C;
-    const unsigned i = u.W1.div(p), j = p - i * W;
-    const size_t gp = (static_cast<size_t>(b) * C + c) * H2 * W2;
-    st(gy, idx, g_pre(g, out, gp, W2, 2 * i + (ph >> 1), 2 * j + (ph & 1)));
-    return;
-  }
-  idx -= n_y;
-  const bool rows = idx < n_r;  // else g_qc
-  if (!rows) idx -= n_r;
-  if (!rows && idx >= n_c) return;
-  const FastDiv& len = rows ? u.len_r : u.len_c;
-  const unsigned plane = len.div(idx), p = idx - plane * len.d;
-  const unsigned b = u.C6.div(plane), ch = plane - b * u.C6.d;
-  const unsigned k = u.C3.div(ch), rest = ch - k * u.C3.d;
-  const int a = u.C1.div(rest), c = rest - a * C;
-  const size_t gp = (static_cast<size_t>(b) * C + c) * H2 * W2;
-  float s = 0.f;
-  if (rows) {  // entry (line, j) of channel (k, a, c)
-    const int line = p >= static_cast<unsigned>(W), j = p - line * W;
-    if (line == static_cast<int>(k)) {
-      const int I = k ? H2 - 1 : 0;
-      for (int J = max(2 * j - 2, 0); J <= min(2 * j + 3, W2 - 1); ++J) {
-        const float cf = line_coef(J, a, j, W);
-        if (cf != 0.f) s += cf * g_pre(g, out, gp, W2, I, J);
-      }
-      // the corner terms 0.25 (P(0, 1) - P(0, 0)) and 0.25 (P(2, W-2) - P(2, W-1)),
-      // subtracted at the line's first and last output
-      if (a == 0 && j <= 1) s += (j == 0 ? 0.25f : -0.25f) * g_pre(g, out, gp, W2, I, 0);
-      if (a == 2 && j >= W - 2) {
-        s += (j == W - 1 ? 0.25f : -0.25f) * g_pre(g, out, gp, W2, I, W2 - 1);
-      }
+// The f32 values of a block's shared memory for one plane: its masked rows 0
+// and 2H-1 (2W each), then its columns 0 and 2W-1 (2H each).
+__host__ __device__ constexpr int plane_lines(int H, int W) { return 4 * (H + W); }
+
+// The R elements of g at src, as bits, masked by the ReLU where msk (out at
+// the same place) is given: g's bits where out > 0, else +0, as torch.where.
+template <typename T, int R>
+__device__ __forceinline__ void masked_run(const typename Io<T>::Bits* src,
+                                           const typename Io<T>::Bits* msk,
+                                           typename Io<T>::Bits (&v)[R]) {
+  using B = typename Io<T>::Bits;
+  if constexpr (R == 1) {
+    v[0] = src[0];
+    if (msk != nullptr && !(Io<T>::f(msk[0]) > 0.f)) v[0] = 0;
+  } else {
+    constexpr int S = 16 / sizeof(B), N = R / S;  // elements of one load, loads
+    Pack<B, S> gv[N], ov[N];
+#pragma unroll
+    for (int h = 0; h < N; ++h) gv[h] = reinterpret_cast<const Pack<B, S>*>(src)[h];
+    if (msk != nullptr) {
+#pragma unroll
+      for (int h = 0; h < N; ++h) ov[h] = reinterpret_cast<const Pack<B, S>*>(msk)[h];
     }
-    st(gqr, idx, s);
-  } else {  // entry (i, line)
-    const int i = p >> 1, line = p & 1;
-    if (line == static_cast<int>(k)) {
-      const int J = k ? W2 - 1 : 0;
-      for (int I = max(2 * i - 2, 0); I <= min(2 * i + 3, H2 - 1); ++I) {
-        const float cf = line_coef(I, a, i, H);
-        if (cf != 0.f) s += cf * g_pre(g, out, gp, W2, I, J);
-      }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      v[k] = gv[k / S].v[k % S];
+      if (msk != nullptr && !(Io<T>::f(ov[k / S].v[k % S]) > 0.f)) v[k] = 0;
     }
-    st(gqc, idx, s);
   }
 }
 
-template <typename T>
+// The adjoint of line_op on a masked line x (2n values) at m < n for tap a:
+// sum_J d line_op(J) / d P(a, m) x[J]. Tap a reads U_a at K = refl(J + a - 1),
+// so h[K], the sum of the x[J] that read K, is x[K + 1 - a], plus x[0] at K = 1
+// for a = 0 (refl(-1)) and x[2n-1] at K = 2n-2 for a = 2 (refl(2n)); and
+// U(P)[K] reads P(m) with weight 0.75 at K = 2m and 2m+1, 0.25 at K = 2m-1 and
+// 2m+2, and 0.25 more at K = 0 (m = 0) and 2n-1 (m = n-1), where `taps` clamps
+// the neighbour. Summed in f32: within one rounding of the I/O type of the
+// plain version's sums, which autograd takes in another order.
+__device__ __forceinline__ float line_adjoint(const float* x, int a, int m, int n) {
+  const auto h = [&](int K) {
+    const int J = K + 1 - a;
+    float v = J >= 0 && J < 2 * n ? x[J] : 0.f;
+    if (a == 0 && K == 1) v += x[0];
+    if (a == 2 && K == 2 * n - 2) v += x[2 * n - 1];
+    return v;
+  };
+  return 0.75f * (h(2 * m) + h(2 * m + 1)) +
+         0.25f * (h(max(2 * m - 1, 0)) + h(min(2 * m + 2, 2 * n - 1)));
+}
+
+// Block x owns the planes x P .. x P + P - 1. First its threads take the runs of
+// those planes, row by row: g (masked) to the two phase planes of g_y, and the
+// outer lines to shared memory. Then, after one barrier, the planes' g_qr items
+// channel by channel (k, a), then their g_qc items, each channel's items of the
+// block's planes consecutive in memory.
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 upconv_bwd(const T* __restrict__ g, const T* __restrict__ out, T* __restrict__ gy,
-           T* __restrict__ gqr, T* __restrict__ gqc, UpShape u) {
-  const unsigned base = blockIdx.x * (kThreads * kItems) + threadIdx.x;
+           T* __restrict__ gqr, T* __restrict__ gqc, BwdShape u) {
+  using B = typename Io<T>::Bits;
+  constexpr int S = 16 / sizeof(B);  // elements of a 16-byte access
+  extern __shared__ float lines[];
+  const int C = u.C, H = u.H, W = u.W, H2 = 2 * H, W2 = 2 * W, L = plane_lines(H, W);
+  const size_t hw = static_cast<size_t>(H) * W;
+  const unsigned p0 = blockIdx.x * u.planes;
+  const B* gb = reinterpret_cast<const B*>(g);
+  const B* ob = reinterpret_cast<const B*>(out);
+  for (unsigned r = threadIdx.x; r < u.n_runs; r += blockDim.x) {
+    const unsigned pl = u.runs_plane.div(r), rr = r - pl * u.runs_plane.d;
+    const unsigned plane = p0 + pl;
+    if (plane >= u.n_planes) break;  // the last block's missing planes
+    const int I = u.nr.div(rr), J0 = static_cast<int>(rr - I * u.nr.d) * R;
+    const size_t at = (static_cast<size_t>(plane) * H2 + I) * W2 + J0;
+    B v[R];
+    masked_run<T, R>(gb + at, ob == nullptr ? nullptr : ob + at, v);
+    const unsigned b = u.C1.div(plane), c = plane - b * C;
+    // row I >> 1 of phase plane (I & 1, 0); that of (I & 1, 1) is C hw further
+    B* dst = reinterpret_cast<B*>(gy) + ((static_cast<size_t>(b) * 4 + 2 * (I & 1)) * C + c) * hw +
+             static_cast<size_t>(I >> 1) * W;
+    if constexpr (R == 1) {
+      dst[(J0 & 1) * C * hw + (J0 >> 1)] = v[0];
+    } else {
+      constexpr int N = R / 2 < S ? R / 2 : S;  // elements of one store
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    upconv_bwd_item(base + it * kThreads, g, out, gy, gqr, gqc, u);
+      for (int h = 0; h < R / 2 / N; ++h) {
+        Pack<B, N> even, odd;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          even.v[k] = v[2 * (h * N + k)];
+          odd.v[k] = v[2 * (h * N + k) + 1];
+        }
+        *reinterpret_cast<Pack<B, N>*>(dst + J0 / 2 + h * N) = even;
+        *reinterpret_cast<Pack<B, N>*>(dst + C * hw + J0 / 2 + h * N) = odd;
+      }
+    }
+    float* ln = lines + pl * L;
+    if (I == 0 || I == H2 - 1) {
+      float* row = ln + (I == 0 ? 0 : W2);
+#pragma unroll
+      for (int k = 0; k < R; ++k) row[J0 + k] = Io<T>::f(v[k]);
+    }
+    if (J0 == 0) ln[2 * W2 + I] = Io<T>::f(v[0]);
+    if (J0 + R == W2) ln[2 * W2 + H2 + I] = Io<T>::f(v[R - 1]);
+  }
+  __syncthreads();
+  // The outer lines' adjoint: an item is position m of line k of one plane for
+  // tap a, written to channel (k, a, c) with a zero at the same place of that
+  // channel's other line: g_qr's rows (m < W), then g_qc's columns (m < H),
+  // channel by channel over the block's planes, m fastest, so that a warp's
+  // stores are consecutive.
+  for (unsigned q = threadIdx.x; q < u.n_qr + u.n_qc; q += blockDim.x) {
+    const bool rows = q < u.n_qr;
+    const unsigned e = rows ? q : q - u.n_qr;
+    // copies: a reference into the parameters would copy them to local memory
+    const FastDiv cd = rows ? u.qr_ch : u.qc_ch, md = rows ? u.qr_m : u.qc_m;
+    const unsigned ch = cd.div(e), rest = e - ch * cd.d, pl = md.div(rest), plane = p0 + pl;
+    if (plane >= u.n_planes) continue;
+    const int n = rows ? W : H, m = static_cast<int>(rest - pl * md.d);
+    const int k = ch >= 3, a = static_cast<int>(ch) - 3 * k;
+    const float* x = lines + pl * L + (rows ? k * W2 : 2 * W2 + k * H2);
+    float t = line_adjoint(x, a, m, n);
+    const unsigned b = u.C1.div(plane), c = plane - b * C;
+    B* dst = reinterpret_cast<B*>(rows ? gqr : gqc) +
+             ((static_cast<size_t>(b) * 6 + ch) * C + c) * (2 * n);
+    if (rows) {  // [2, W]: entry (line, m)
+      // the corner terms 0.25 (P(0, 1) - P(0, 0)) and 0.25 (P(2, W-2) - P(2, W-1)),
+      // which the line's first and last outputs subtract
+      if (a == 0 && m <= 1) t += (m == 0 ? 0.25f : -0.25f) * x[0];
+      if (a == 2 && m >= W - 2) t += (m == W - 1 ? 0.25f : -0.25f) * x[W2 - 1];
+      dst[k * W + m] = Io<T>::bits(t);
+      dst[(1 - k) * W + m] = 0;
+    } else {  // [H, 2]: entry (m, line), as a pair
+      const B v = Io<T>::bits(t);
+      Pack<B, 2> o;
+      o.v[0] = k ? B(0) : v;
+      o.v[1] = k ? v : B(0);
+      if constexpr (R == 1) {
+        dst[2 * m] = o.v[0];
+        dst[2 * m + 1] = o.v[1];
+      } else {
+        *reinterpret_cast<Pack<B, 2>*>(dst + 2 * m) = o;
+      }
+    }
   }
 }
 
@@ -552,6 +651,30 @@ void (*fwd_kernel(int R))(const T*, const T*, const T*, const T*, T*, FwdShape, 
          : R == S ? upconv_fwd<T, S> : R == 2 * S ? upconv_fwd<T, 2 * S> : upconv_fwd<T, 4 * S>;
 }
 
+// The upconv_bwd instance of T with runs of R elements of g.
+template <typename T>
+void (*bwd_kernel(int R))(const T*, const T*, T*, T*, T*, BwdShape) {
+  constexpr int S = 16 / sizeof(T);  // elements of 16 bytes
+  return R == 1 ? upconv_bwd<T, 1> : R == S ? upconv_bwd<T, S> : upconv_bwd<T, 2 * S>;
+}
+
+// Launches bwd_kernel<T>(R), first raising its dynamic shared memory limit
+// where the plan asks for more than the default 48 KB.
+template <typename T>
+int launch_bwd(int R, const void* g, const void* out, void* gy, void* gqr, void* gqc,
+               const BwdShape& u, int threads, int nblocks, int smem, cudaStream_t s) {
+  const auto kernel = bwd_kernel<T>(R);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<nblocks, threads, smem, s>>>(static_cast<const T*>(g), static_cast<const T*>(out),
+                                        static_cast<T*>(gy), static_cast<T*>(gqr),
+                                        static_cast<T*>(gqc), u);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -595,25 +718,31 @@ int livae_upconv_fwd(const void* y, const void* qr, const void* qc, const void* 
 
 // g_y [B, 4C, H, W], g_qr [B, 6C, 2, W] and g_qc [B, 6C, H, 2] of the cotangent
 // g [B, C, 2H, 2W]; out (the forward's output, like g) masks the ReLU, or null.
+// The launch plan gives `elems` (the elements of g in a thread's run: 1, or 16
+// or 32 bytes' worth in the vector variant), `planes` per block, `threads`,
+// `nblocks` (ceil(B C / planes)) and `smem` (at least 16 (H + W) bytes a plane,
+// at most 227 KB). cudaErrorInvalidValue for a shape or a plan the kernel does
+// not take: the B C planes must stay below 2^31, the range of the plane index
+// that FastDiv divides by C (the shared memory limit keeps a block's runs and
+// line items there too; element offsets are size_t).
 int livae_upconv_bwd(const void* g, const void* out, void* gy, void* gqr, void* gqc, int B, int C,
-                     int H, int W, int is_bf16, void* stream) {
-  const unsigned nb = blocks(4LL * B * C * H * W + 12LL * B * C * (H + W));
-  if (B <= 0 || C <= 0 || H < 2 || W < 2 || nb == 0) {
+                     int H, int W, int is_bf16, int elems, int planes, int threads, int nblocks,
+                     int smem, void* stream) {
+  const int elem = is_bf16 ? 2 : 4, vec = 16 / elem;
+  if (B <= 0 || C <= 0 || H < 2 || W < 2 || 1LL * B * C > 2147483647LL ||
+      (elems != 1 && elems != vec && elems != 2 * vec) ||
+      (elems > 1 && ((2 * W) % elems || !aligned(g, 16) || (out != nullptr && !aligned(out, 16)) ||
+                     !aligned(gy, std::min(elems / 2 * elem, 16)) || !aligned(gqc, 2 * elem))) ||
+      planes <= 0 || threads <= 0 || threads > kThreads || threads % 32 ||
+      nblocks != (1LL * B * C + planes - 1) / planes ||
+      smem < 16LL * planes * (static_cast<long long>(H) + W) || smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const UpShape u = up_shape(B, C, H, W);
+  const BwdShape u = bwd_shape(B, C, H, W, elems, planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    upconv_bwd<T><<<nb, kThreads, 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(out), static_cast<T*>(gy),
-        static_cast<T*>(gqr), static_cast<T*>(gqc), u);
-  } else {
-    upconv_bwd<float><<<nb, kThreads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(out), static_cast<float*>(gy),
-        static_cast<float*>(gqr), static_cast<float*>(gqc), u);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_bwd<__nv_bfloat16>(elems, g, out, gy, gqr, gqc, u, threads, nblocks,
+                                             smem, s)
+                 : launch_bwd<float>(elems, g, out, gy, gqr, gqc, u, threads, nblocks, smem, s);
 }
 
 // out [B, C, h, w] (like y) and win [B, C, h, w] (uint8) of y [B, 4C, h, w] and

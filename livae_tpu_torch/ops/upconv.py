@@ -42,10 +42,11 @@ cotangent goes to the FIRST maximal phase in the order (0,0), (0,1), (1,0),
 launches the kernels and keeps the winning phase as a uint8 map (255 where
 relu's gradient is 0).
 
-`launch_plan` picks the variant of the epilogue's and the routing's kernels
-per call from the shape, the dtype and the pointers' alignment: the vector
-variant moves 16 to 64 bytes a thread in 16-byte accesses, the scalar one
-takes any width and alignment.
+`launch_plan` picks the variant of the epilogue's kernels (forward and
+adjoint) and of the routing's per call from the shape, the dtype and the
+pointers' alignment: the vector variant moves 16 to 64 bytes a thread in
+16-byte accesses, the scalar one takes any width and alignment; the adjoint's
+plan also gives the planes each block owns and their shared memory.
 
 Weights are cast to the compute dtype before the phase kernels are built, as
 the JAX layers do; the phase kernel then rounds as JAX's einsum does (one
@@ -470,28 +471,39 @@ def fused_conv5_relu_maxpool(x: torch.Tensor, k5: torch.Tensor, b: torch.Tensor)
 
 THREADS = 256  # per block (kThreads in ops/csrc/upconv.cu)
 VECTOR_BYTES = 16  # one access of a vector variant's thread
-# the longest run of a thread, in bytes: upconv_fwd's runs of 64, 32 or 16
-# bytes, the routing's of 16 (PERF.md, section 6: on the H100 the routing is
-# slower with 32, the epilogue fastest with the longest run that leaves the
-# launch MIN_BLOCKS blocks, about four waves of resident blocks on 132 SMs)
-RUN_BYTES = {"upconv_fwd": 64, "phasemax_bwd": 16}
+# the longest run of a thread, in bytes: the epilogue's runs of 64, 32 or 16
+# bytes, its adjoint's of 32 or 16 (of g), the routing's of 16 (PERF.md,
+# section 6: on the H100 the routing is slower with 32 and the adjoint with 64;
+# the epilogue and the adjoint are fastest with the longest run that leaves
+# the launch MIN_BLOCKS blocks' worth of threads, about four waves of resident
+# blocks on 132 SMs)
+RUN_BYTES = {"upconv_fwd": 64, "upconv_bwd": 32, "phasemax_bwd": 16}
 MIN_BLOCKS = 2048
+SMEM_MAX = 232448  # a block's most shared memory on the H100 (227 KB; kMaxSmem)
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
 @dataclass(frozen=True)
 class UpconvPlan:
     """The launch of the epilogue's forward ("upconv_fwd": shape (B, C, H, W),
-    y [B, 4C, H, W] -> out [B, C, 2H, 2W]) or of the routing ("phasemax_bwd":
-    shape (B, C, h, w), g [B, C, h, w] -> g_y [B, 4C, h, w]).
+    y [B, 4C, H, W] -> out [B, C, 2H, 2W]), of its adjoint ("upconv_bwd": the
+    same shape, g [B, C, 2H, 2W] -> g_y, g_qr [B, 6C, 2, W], g_qc [B, 6C, H,
+    2]) or of the routing ("phasemax_bwd": shape (B, C, h, w), g [B, C, h, w]
+    -> g_y [B, 4C, h, w]).
 
     variant "vector": a thread moves `elems_per_thread` consecutive elements
-    (16 bytes, or upconv_fwd 32 or 64) in accesses of up to 16 bytes:
+    (16 bytes, or the epilogue's 32 or 64) in accesses of up to 16 bytes:
     upconv_fwd writes a run of that many outputs of one output row (rows 0
-    and 2H-1 in runs of at most 16 bytes), phasemax_bwd takes that many
-    elements of g and writes them to each of the four phase planes. "scalar":
-    one output (one element of g) per thread, any width and alignment.
-    `threads` per block, `blocks`, `smem` bytes of shared memory per block.
+    and 2H-1 in runs of at most 16 bytes); upconv_bwd reads a run of that
+    many elements of one row of g and writes its even and odd columns to two
+    phase planes of g_y; phasemax_bwd takes that many elements of g and writes
+    them to each of the four phase planes. "scalar": one element per thread
+    (upconv_bwd: per run), any width and alignment. `threads` per block,
+    `blocks`, `smem` bytes of shared memory per block; upconv_bwd's blocks own
+    `planes_per_block` output planes each (its threads loop over their runs,
+    then over the positions of their outer lines, one tap's entry of g_qr
+    or g_qc each), and keep their outer lines in `smem` (0 planes for the
+    other kernels).
     """
 
     kernel: str
@@ -502,14 +514,22 @@ class UpconvPlan:
     threads: int
     blocks: int
     smem: int = 0
+    planes_per_block: int = 0
 
     def writes(self) -> list[np.ndarray]:
         """The flat indices into out (upconv_fwd) or g_y (phasemax_bwd) that
         each thread writes, in thread order, mapped as the kernel maps them:
         one [threads, elements] array per range of threads (upconv_fwd: rows 0
-        and 2H-1, then the others)."""
+        and 2H-1, then the others). upconv_bwd: [g_y's, g_qr's, g_qc's], each
+        [items, elements] in the order of the blocks and, within a block, of
+        the loop index (thread = index % threads): a run's even columns, then
+        its odd ones (C H W further); an outer line's item its entry of one
+        tap's channel, then the zero at the same place of the channel's
+        other line (g_qr: W away; g_qc: its pair)."""
         B, C, H, W = self.shape
         n = self.elems_per_thread
+        if self.kernel == "upconv_bwd":
+            return _bwd_writes(self)
         if self.kernel == "phasemax_bwd":
             hw = H * W
             e = (np.arange(B * C * hw // n, dtype=np.int64) * n)[:, None] + np.arange(n)
@@ -531,6 +551,47 @@ class UpconvPlan:
         return [outer[:, None] + np.arange(nrow), mid[:, None] + np.arange(n)]
 
 
+def _bwd_writes(plan: UpconvPlan) -> list[np.ndarray]:
+    """UpconvPlan.writes of an upconv_bwd plan (upconv_bwd in
+    ops/csrc/upconv.cu)."""
+    B, C, H, W = plan.shape
+    n, P, H2, W2, hw = plan.elems_per_thread, plan.planes_per_block, 2 * H, 2 * W, H * W
+    first = np.arange(plan.blocks, dtype=np.int64)[:, None] * P  # each block's first plane
+
+    def by_block(local_plane, *cols):
+        """Each block's items: their planes, and cols tiled, where the plane exists."""
+        plane = (first + local_plane).ravel()
+        keep = plane < B * C
+        return [plane[keep]] + [np.tile(c, plan.blocks)[keep] for c in cols]
+
+    nr = W2 // n
+    r = np.arange(P * H2 * nr, dtype=np.int64)
+    plane, I, J0 = by_block(r // (H2 * nr), r // nr % H2, r % nr * n)
+    cols = J0[:, None] + np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)] if n > 1 else
+                                        [np.arange(1)])
+    b, c = plane[:, None] // C, plane[:, None] % C
+    gy = ((b * 4 + 2 * (I[:, None] % 2) + cols % 2) * C + c) * hw + I[:, None] // 2 * W + cols // 2
+    lines = []
+    for rows, length in ((True, W2), (False, H2)):  # g_qr's rows, then g_qc's columns
+        n_m = length // 2
+        q = np.arange(6 * P * n_m, dtype=np.int64)
+        plane, ch, m = by_block(q % (P * n_m) // n_m, q // (P * n_m), q % n_m)
+        at = ((plane // C * 6 + ch) * C + plane % C) * length  # channel (k, a, c)
+        k = ch // 3
+        if rows:  # [2, W]: line k's entry m, then line 1 - k's
+            lines.append(np.stack([at + k * W + m, at + (1 - k) * W + m], 1))
+        else:  # [H, 2]: the pair (m, 0), (m, 1)
+            lines.append(np.stack([at + 2 * m, at + 2 * m + 1], 1))
+    return [gy] + lines
+
+
+def _bwd_planes(shape, n: int) -> int:
+    """upconv_bwd's planes per block for runs of n: as many as give the block's
+    threads about one run each, at least one, at most every plane."""
+    B, C, H, W = shape
+    return max(1, min(THREADS // (4 * H * W // n), B * C))
+
+
 def _row_run(n: int, dtype: torch.dtype) -> int:
     """The run of upconv_fwd's rows 0 and 2H-1 where the others take runs of
     n: at most 16 bytes (row_run in ops/csrc/upconv.cu)."""
@@ -538,20 +599,27 @@ def _row_run(n: int, dtype: torch.dtype) -> int:
 
 
 def _threads(kernel: str, shape, dtype: torch.dtype, n: int) -> int:
-    """The threads of a launch with n elements a thread."""
+    """The threads of a launch with n elements a thread; upconv_bwd's runs of
+    g, over which its blocks' threads loop."""
     B, C, H, W = shape
     if kernel == "phasemax_bwd":
         return B * C * H * W // n
+    if kernel == "upconv_bwd":
+        return B * C * 4 * H * W // n
     return B * C * (2 * (2 * W // _row_run(n, dtype)) + (2 * H - 2) * (2 * W // n))
 
 
 def _needs(kernel: str, n: int, elem: int) -> tuple:
     """The alignment in bytes each pointer needs for runs of n elements: (y,
-    out) for upconv_fwd, (g, win, g_y) for phasemax_bwd."""
+    out) for upconv_fwd, (g, out, g_y) for upconv_bwd, (g, win, g_y) for
+    phasemax_bwd."""
     if n == 1:
-        return (elem, elem) if kernel == "upconv_fwd" else (elem, 1, elem)
+        return {"upconv_fwd": (elem, elem), "upconv_bwd": (elem, elem, elem)}.get(
+            kernel, (elem, 1, elem))
     if kernel == "upconv_fwd":
         return min(n // 2 * elem, VECTOR_BYTES), VECTOR_BYTES
+    if kernel == "upconv_bwd":
+        return VECTOR_BYTES, VECTOR_BYTES, min(n // 2 * elem, VECTOR_BYTES)
     return VECTOR_BYTES, n, VECTOR_BYTES
 
 
@@ -563,21 +631,25 @@ def alignment(t: torch.Tensor) -> int:
 
 def launch_plan(kernel: str, shape, dtype: torch.dtype, align=None,
                 elems: int | None = None) -> UpconvPlan:
-    """The launch of `kernel` ("upconv_fwd" or "phasemax_bwd") on `shape`
-    (see UpconvPlan) in `dtype` (float32 or bfloat16).
+    """The launch of `kernel` ("upconv_fwd", "upconv_bwd" or "phasemax_bwd")
+    on `shape` (see UpconvPlan) in `dtype` (float32 or bfloat16).
 
     `align`: the byte alignment (`alignment`) of the pointers the kernel
-    reads and writes in blocks, (y, out) for upconv_fwd and (g, win, g_y) for
-    phasemax_bwd; None for fresh allocations. The vector variant where every
-    output row (upconv_fwd: 2W) or plane (phasemax_bwd: h w) is a whole
-    number of runs of 16 bytes and every pointer is aligned to its accesses
-    (y to its loads, up to 16 bytes; win to one byte per element; the rest to
-    16), with the longest run up to RUN_BYTES that the shape and pointers take
-    and that leaves at least MIN_BLOCKS blocks, else the shortest; else the
-    scalar variant. `elems` picks the elements per thread by hand (1, or 16
-    bytes' worth up to RUN_BYTES); ValueError where the shape or the pointers
-    do not take it. Plans are cached: a step asks for the same few on every
-    launch.
+    reads and writes in blocks, (y, out) for upconv_fwd, (g, out, g_y) for
+    upconv_bwd and (g, win, g_y) for phasemax_bwd; None for fresh
+    allocations. The vector variant where every output row (the epilogue's
+    2W) or plane (phasemax_bwd: h w) is a whole number of runs of 16 bytes
+    and every pointer is aligned to its accesses (upconv_fwd's y to its loads
+    and upconv_bwd's g_y to its stores, up to 16 bytes; win to one byte per
+    element; the rest to 16), with the longest run up to RUN_BYTES that the
+    shape and pointers take and that leaves at least MIN_BLOCKS blocks' worth
+    of threads (`_threads`; upconv_bwd's runs of g, over which its blocks'
+    threads loop), else the shortest; else the scalar variant. upconv_bwd's
+    planes per block are `_bwd_planes`'s; ValueError where their outer lines
+    need more than SMEM_MAX bytes of shared memory. `elems` picks the
+    elements per thread by hand (1, or 16 bytes' worth up to RUN_BYTES);
+    ValueError where the shape or the pointers do not take it. Plans are
+    cached: a step asks for the same few on every launch.
     """
     return _launch_plan(kernel, tuple(int(d) for d in shape), dtype,
                         None if align is None else tuple(align), elems)
@@ -586,13 +658,15 @@ def launch_plan(kernel: str, shape, dtype: torch.dtype, align=None,
 @functools.lru_cache(maxsize=512)
 def _launch_plan(kernel: str, shape: tuple, dtype: torch.dtype, align, elems) -> UpconvPlan:
     if kernel not in RUN_BYTES:
-        raise ValueError(f"launch_plan plans upconv_fwd or phasemax_bwd, got {kernel!r}")
+        raise ValueError(f"launch_plan plans upconv_fwd, upconv_bwd or phasemax_bwd, "
+                         f"got {kernel!r}")
     if dtype not in _ELEM:
         raise TypeError(f"{kernel} takes float32 or bfloat16, got {dtype}")
     B, C, H, W = shape
-    if kernel == "upconv_fwd" and (min(B, C) < 1 or min(H, W) < 2):
-        raise ValueError(f"upconv_fwd needs B, C >= 1 and H, W >= 2, got {list(shape)}")
-    if kernel == "phasemax_bwd" and min(shape) < 1:
+    upconv = kernel != "phasemax_bwd"
+    if upconv and (min(B, C) < 1 or min(H, W) < 2):
+        raise ValueError(f"{kernel} needs B, C >= 1 and H, W >= 2, got {list(shape)}")
+    if not upconv and min(shape) < 1:
         raise ValueError(f"phasemax_bwd needs a non-empty [B, C, h, w], got {list(shape)}")
     elem = _ELEM[dtype]
     npointers = 2 if kernel == "upconv_fwd" else 3
@@ -600,23 +674,32 @@ def _launch_plan(kernel: str, shape: tuple, dtype: torch.dtype, align, elems) ->
     if len(align) != npointers:
         raise ValueError(f"{kernel}: one alignment for each of its {npointers} pointers, "
                          f"got {align}")
-    width = 2 * W if kernel == "upconv_fwd" else H * W
+    width = 2 * W if upconv else H * W
 
     def takes(n: int) -> bool:
         return width % n == 0 and all(a % k == 0 for a, k in zip(align, _needs(kernel, n, elem)))
+
+    def plan(n: int) -> UpconvPlan:
+        variant = "vector" if n > 1 else "scalar"
+        if kernel != "upconv_bwd":
+            return UpconvPlan(kernel, shape, dtype, variant, n, THREADS,
+                              -(-_threads(kernel, shape, dtype, n) // THREADS))
+        P = _bwd_planes(shape, n)
+        smem = P * 16 * (H + W)  # rows 0 and 2H-1, columns 0 and 2W-1 in f32
+        if smem > SMEM_MAX:
+            raise ValueError(f"upconv_bwd {list(shape)}: the outer lines of {P} planes a "
+                             f"block need {smem} bytes of shared memory, more than {SMEM_MAX}")
+        return UpconvPlan(kernel, shape, dtype, variant, n, THREADS, -(-B * C // P), smem, P)
 
     runs = [nbytes // elem for nbytes in (64, 32, 16) if nbytes <= RUN_BYTES[kernel]]
     if elems is not None:
         if elems not in (1, *runs) or not takes(elems):
             raise ValueError(f"{kernel} {list(shape)} {dtype} with alignments {align} does not "
                              f"take {elems} elements a thread")
-        n = elems
-    else:
-        fit = [k for k in runs if takes(k)]
-        n = next((k for k in fit if _threads(kernel, shape, dtype, k) >= MIN_BLOCKS * THREADS),
-                 fit[-1] if fit else 1)
-    return UpconvPlan(kernel, shape, dtype, "vector" if n > 1 else "scalar", n, THREADS,
-                      -(-_threads(kernel, shape, dtype, n) // THREADS))
+        return plan(elems)
+    fit = [k for k in runs if takes(k)]
+    return plan(next((k for k in fit if _threads(kernel, shape, dtype, k) >= MIN_BLOCKS * THREADS),
+                     fit[-1] if fit else 1))
 
 
 _SIGNED = False
@@ -628,7 +711,7 @@ def _lib() -> ctypes.CDLL:
     if not _SIGNED:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.livae_upconv_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
-        lib.livae_upconv_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.livae_upconv_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         lib.livae_phasemax_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.livae_phasemax_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
         for fn in (lib.livae_upconv_fwd, lib.livae_upconv_bwd, lib.livae_phasemax_fwd,
@@ -686,24 +769,33 @@ def _launch_upconv_fwd(y, qr, qc, bias, relu: bool, elems: int | None = None) ->
     return out
 
 
-def _launch_upconv_bwd(g, out):
+def _launch_upconv_bwd(g, out, elems: int | None = None):
     """(g_y, g_qr, g_qc) for the cotangent g of the output; `out` (the output)
-    masks the ReLU, None where the stage has none."""
+    masks the ReLU, None where the stage has none. `elems` picks the plan's
+    elements per thread (launch_plan)."""
     _check("upconv", g, *([] if out is None else [out]))
     B, C, H2, W2 = g.shape
     H, W = H2 // 2, W2 // 2
+    if H2 != 2 * H or W2 != 2 * W or min(H, W) < 2 or (out is not None and out.shape != g.shape):
+        raise ValueError(f"upconv backward: g {tuple(g.shape)} is no [B, C, 2H, 2W] with H, W >= 2"
+                         f"{'' if out is None else f' or out {tuple(out.shape)} is not like it'}")
     g = g.contiguous()
     out = None if out is None else out.contiguous()
     gy = torch.empty((B, 4 * C, H, W), dtype=g.dtype, device=g.device)
     gqr = torch.empty((B, 6 * C, 2, W), dtype=g.dtype, device=g.device)
     gqc = torch.empty((B, 6 * C, H, 2), dtype=g.dtype, device=g.device)
+    plan = launch_plan("upconv_bwd", (B, C, H, W), g.dtype,
+                       (alignment(g), VECTOR_BYTES if out is None else alignment(out),
+                        alignment(gy)), elems)
     with torch.cuda.device(g.device):
         err = _lib().livae_upconv_bwd(g.data_ptr(), None if out is None else out.data_ptr(),
                                       gy.data_ptr(), gqr.data_ptr(), gqc.data_ptr(), B, C, H, W,
-                                      int(g.dtype == torch.bfloat16), _stream(g))
+                                      int(g.dtype == torch.bfloat16), plan.elems_per_thread,
+                                      plan.planes_per_block, plan.threads, plan.blocks, plan.smem,
+                                      _stream(g))
     if err != 0:
-        raise RuntimeError(f"upconv backward kernel launch failed: CUDA error {err}")
-    _count_launch("UP_BWD_LAUNCHES")
+        raise RuntimeError(f"upconv backward kernel launch failed: CUDA error {err} ({plan})")
+    _count_launch("UP_BWD_LAUNCHES", plan)
     return gy, gqr, gqc
 
 

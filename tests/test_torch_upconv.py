@@ -294,15 +294,19 @@ def test_cpu_takes_the_plain_versions_and_the_functions_need_cuda(monkeypatch):
 
 
 # The launch plans' shapes: the main path's four decoder stages (B, C_out, H, W)
-# at batch 512 and two STN blocks (B, C_out, h, w) on the [1024] pair, and the
-# edge shapes chip_smoke.py holds on the card (widths that are no whole number
-# of 16-byte runs, runs that are a whole output row, one-pixel maps)
-PLAN_MAIN = [("upconv_fwd", s) for s in ((512, 128, 8, 8), (512, 64, 16, 16),
-                                         (512, 32, 32, 32), (512, 1, 64, 64))] + \
-            [("phasemax_bwd", s) for s in ((1024, 16, 64, 64), (1024, 32, 32, 32))]
-PLAN_EDGE = [("upconv_fwd", s) for s in ((3, 4, 2, 2), (3, 1, 5, 7), (2, 3, 2, 9), (2, 2, 3, 4),
-                                         (2, 2, 4, 12))] + \
-            [("phasemax_bwd", s) for s in ((3, 1, 2, 2), (3, 4, 2, 6), (2, 3, 1, 1), (2, 3, 4, 8))]
+# at batch 512 (the epilogue and its adjoint) and two STN blocks (B, C_out, h,
+# w) on the [1024] pair, and the edge shapes chip_smoke.py holds on the card
+# (widths that are no whole number of 16-byte runs, runs that are a whole
+# output row, one-pixel maps)
+_STAGES = ((512, 128, 8, 8), (512, 64, 16, 16), (512, 32, 32, 32), (512, 1, 64, 64))
+_STAGES_EDGE = ((3, 4, 2, 2), (3, 1, 5, 7), (2, 3, 2, 9), (2, 2, 3, 4), (2, 2, 4, 12))
+PLAN_MAIN = [("upconv_fwd", s) for s in _STAGES] + \
+            [("phasemax_bwd", s) for s in ((1024, 16, 64, 64), (1024, 32, 32, 32))] + \
+            [("upconv_bwd", s) for s in _STAGES]
+PLAN_EDGE = [("upconv_fwd", s) for s in _STAGES_EDGE] + \
+            [("phasemax_bwd", s)
+             for s in ((3, 1, 2, 2), (3, 4, 2, 6), (2, 3, 1, 1), (2, 3, 4, 8))] + \
+            [("upconv_bwd", s) for s in _STAGES_EDGE]
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
@@ -311,13 +315,17 @@ _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 MAIN_RUN_BYTES = {(512, 128, 8, 8): (32, 64), (512, 64, 16, 16): (64, 64),
                   (512, 32, 32, 32): (64, 64), (512, 1, 64, 64): (32, 64),
                   (1024, 16, 64, 64): (16, 16), (1024, 32, 32, 32): (16, 16)}
+# the same for upconv_bwd's runs of g (each stage has at least MIN_BLOCKS
+# blocks' worth of runs of 32 bytes, the last one exactly as many in bf16)
+MAIN_BWD_RUN_BYTES = {(512, 128, 8, 8): (32, 32), (512, 64, 16, 16): (32, 32),
+                      (512, 32, 32, 32): (32, 32), (512, 1, 64, 64): (32, 32)}
 
 
 def _offset_align(kernel, dtype):
     """Every pointer of a view one element into its storage (chip_smoke.py's
     offset views; the wrapper's output stays a fresh allocation)."""
     e = _ELEM[dtype]
-    return (e, 16) if kernel == "upconv_fwd" else (e, 1, 16)
+    return {"upconv_fwd": (e, 16), "upconv_bwd": (e, e, 16)}.get(kernel, (e, 1, 16))
 
 
 def _want_elems(kernel, shape, dtype, offset):
@@ -327,9 +335,10 @@ def _want_elems(kernel, shape, dtype, offset):
     the row (2W) or plane (h w) holds a whole number of them; else one."""
     if offset:
         return 1
-    if shape in MAIN_RUN_BYTES:
-        return MAIN_RUN_BYTES[shape][dtype == torch.float32] // _ELEM[dtype]
-    width = 2 * shape[3] if kernel == "upconv_fwd" else shape[2] * shape[3]
+    main = MAIN_BWD_RUN_BYTES if kernel == "upconv_bwd" else MAIN_RUN_BYTES
+    if shape in main:
+        return main[shape][dtype == torch.float32] // _ELEM[dtype]
+    width = shape[2] * shape[3] if kernel == "phasemax_bwd" else 2 * shape[3]
     n = 16 // _ELEM[dtype]
     return n if width % n == 0 else 1
 
@@ -342,14 +351,27 @@ def test_launch_plan_picks_the_variant(kernel, shape, dtype, offset):
     """The main path's shapes take the vector variant (runs of RUN_BYTES) on
     aligned tensors; a ragged width takes shorter runs or the scalar variant,
     and a view one element into its storage the scalar variant; threads and
-    blocks cover the work."""
+    blocks cover the work. upconv_bwd's blocks own whole planes, as many as
+    give the block's threads about one run each, with their outer lines'
+    shared memory; on the main path at least MIN_BLOCKS blocks' worth of runs,
+    and MIN_BLOCKS blocks where there are as many planes."""
     align = _offset_align(kernel, dtype) if offset else None
     plan = U.launch_plan(kernel, shape, dtype, align)
     n = _want_elems(kernel, shape, dtype, offset)
     assert (plan.variant, plan.elems_per_thread) == ("vector" if n > 1 else "scalar", n)
+    B, C, H, W = shape
+    if kernel == "upconv_bwd":
+        P = plan.planes_per_block
+        if (kernel, shape) in PLAN_MAIN and not offset:
+            assert plan.variant == "vector" and plan.blocks >= min(U.MIN_BLOCKS, B * C)
+            assert U._threads(kernel, shape, dtype, n) >= U.MIN_BLOCKS * U.THREADS
+        assert plan.threads == U.THREADS and plan.blocks == -(-B * C // P)
+        assert plan.smem == P * 16 * (H + W) <= U.SMEM_MAX
+        assert P == min(max(1, U.THREADS // (4 * H * W // n)), B * C)
+        return
     if (kernel, shape) in PLAN_MAIN and not offset:
         assert plan.variant == "vector" and plan.blocks >= U.MIN_BLOCKS
-    assert plan.threads == U.THREADS and plan.smem == 0
+    assert plan.threads == U.THREADS and plan.smem == 0 and plan.planes_per_block == 0
     n_threads = U._threads(kernel, shape, dtype, n)
     assert (plan.blocks - 1) * plan.threads < n_threads <= plan.blocks * plan.threads
 
@@ -362,7 +384,8 @@ def test_launch_plan_writes_every_output_once(kernel, shape, dtype, offset):
     """Enumerated from the plan's own fields as the kernel maps its threads,
     the runs write every element of out (upconv_fwd) or g_y (phasemax_bwd)
     exactly once, each thread a run of elems_per_thread consecutive elements
-    (of at most 16 bytes in upconv_fwd's rows 0 and 2H-1). The main path's
+    (of at most 16 bytes in upconv_fwd's rows 0 and 2H-1); upconv_bwd's
+    every element of g_y, g_qr and g_qc, zeros included. The main path's
     batch is cut to 2: a thread's place depends on B only through the count of
     planes."""
     shape = (min(shape[0], 2),) + shape[1:]
@@ -370,6 +393,9 @@ def test_launch_plan_writes_every_output_once(kernel, shape, dtype, offset):
     plan = U.launch_plan(kernel, shape, dtype, align)
     runs = plan.writes()
     B, C, H, W = shape
+    if kernel == "upconv_bwd":
+        _check_bwd_writes(plan, runs)
+        return
     written = np.concatenate([r.ravel() for r in runs])
     assert written.min() == 0 and np.array_equal(np.bincount(written), np.ones(4 * B * C * H * W))
     assert sum(len(r) for r in runs) == U._threads(kernel, shape, dtype, plan.elems_per_thread)
@@ -382,6 +408,28 @@ def test_launch_plan_writes_every_output_once(kernel, shape, dtype, offset):
         assert (np.diff(run, axis=1) == 1).all() and (run[:, 0] % k == 0).all()
         if kernel == "phasemax_bwd":
             assert (r[:, k:2 * k] - run == step * C).all()
+
+
+def _check_bwd_writes(plan, runs):
+    """upconv_bwd's writes: g_y, g_qr and g_qc each element once; a run of g
+    of n elements writes its n / 2 even columns consecutively into one phase
+    plane and its odd ones C H W further (the (p, 1) plane), each half at a
+    multiple of its own length (the stores' alignment); an outer line's item
+    one entry beside the other line's zero (g_qr: W apart; g_qc: an aligned
+    pair)."""
+    B, C, H, W = plan.shape
+    n = plan.elems_per_thread
+    gy, gqr, gqc = runs
+    for got, size in ((gy, 4 * B * C * H * W), (gqr, 12 * B * C * W), (gqc, 12 * B * C * H)):
+        assert np.array_equal(np.bincount(got.ravel(), minlength=size), np.ones(size))
+    assert gy.shape == (U._threads("upconv_bwd", plan.shape, plan.dtype, n), n)
+    if n > 1:
+        even, odd = gy[:, :n // 2], gy[:, n // 2:]
+        assert (np.diff(even, axis=1) == 1).all() and (odd - even == C * H * W).all()
+        assert (even[:, 0] % (n // 2) == 0).all()
+    assert gqr.shape[1] == gqc.shape[1] == 2
+    assert (np.abs(gqr[:, 1] - gqr[:, 0]) == W).all()
+    assert (gqc[:, 0] % 2 == 0).all() and (gqc[:, 1] - gqc[:, 0] == 1).all()
 
 
 def test_launch_plan_refuses_what_the_kernels_do_not_take():
@@ -403,13 +451,41 @@ def test_launch_plan_refuses_what_the_kernels_do_not_take():
         U.launch_plan("phasemax_bwd", (2, 4, 8, 8), bf, elems=3)
     assert U.launch_plan("upconv_fwd", (2, 4, 8, 8), bf, (8, 16)).elems_per_thread == 8
     with pytest.raises(ValueError, match="plans"):
-        U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf)
+        U.launch_plan("phasemax_fwd", (2, 4, 8, 8), bf)
     with pytest.raises(TypeError):
         U.launch_plan("upconv_fwd", (2, 4, 8, 8), torch.float16)
     with pytest.raises(ValueError, match="H, W >= 2"):
         U.launch_plan("upconv_fwd", (2, 4, 1, 8), bf)
     with pytest.raises(ValueError, match="alignment"):
         U.launch_plan("phasemax_bwd", (2, 4, 8, 8), bf, (16, 16))
+
+
+def test_upconv_bwd_plan_refuses_what_the_kernel_does_not_take():
+    """The adjoint's plan: a run the width does not take, a g, out or g_y
+    misaligned to its accesses, a plane whose outer lines need more than
+    SMEM_MAX bytes of shared memory: ValueError, never a quiet fallback; what
+    it takes, it plans."""
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_bwd", (2, 4, 8, 9), bf, elems=8)  # 2W = 18
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf, elems=32)  # 2W = 16: no run of 32
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_bwd", (2, 4, 32, 32), bf, elems=32)  # runs of 64 bytes: none
+    for align in ((8, 16, 16), (16, 8, 16), (2, 16, 16), (16, 16, 4)):  # g, out, g_y
+        with pytest.raises(ValueError, match="does not take"):
+            U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf, align, elems=8)
+    with pytest.raises(ValueError, match="does not take"):
+        U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf, (16, 16, 8), elems=16)  # g_y: 16 bytes
+    assert U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf, (16, 16, 8), elems=8).variant == "vector"
+    assert U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf, (16, 8, 16)).variant == "scalar"
+    with pytest.raises(ValueError, match="shared memory"):
+        U.launch_plan("upconv_bwd", (1, 1, 8000, 8000), bf)  # one plane's lines: 256,000 bytes
+    assert U.launch_plan("upconv_bwd", (1, 1, 7000, 7000), bf).smem == 16 * 14000
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        U.launch_plan("upconv_bwd", (2, 4, 8, 1), bf)
+    with pytest.raises(ValueError, match="alignment"):
+        U.launch_plan("upconv_bwd", (2, 4, 8, 8), bf, (16, 16))
 
 
 def test_alignment_reads_the_pointer():
