@@ -190,7 +190,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from livae_tpu_torch import bench_rotate
+from livae_tpu_torch import bench_rotate, tracing
 from livae_tpu_torch.data.datasets import (
     AdaptiveLatticeDataset,
     PairedAdaptiveLatticeDataset,
@@ -229,6 +229,7 @@ from livae_tpu_torch.scripts import (
     verify_rotational_invariance,
     visualizations,
 )
+from livae_tpu_torch.scripts._common import KERNELS, kernel_launches
 from livae_tpu_torch.train.engine import (
     MetricLogger,
     evaluate,
@@ -276,16 +277,16 @@ def check(ok: bool, what: str) -> None:
 
 
 def zero_counts() -> None:
-    R.FWD_LAUNCHES = R.BWD_LAUNCHES = SH.FWD_LAUNCHES = SH.BWD_LAUNCHES = 0
-    UP.UP_FWD_LAUNCHES = UP.UP_BWD_LAUNCHES = UP.PMAX_FWD_LAUNCHES = UP.PMAX_BWD_LAUNCHES = 0
-    UP.VARIANT_LAUNCHES.clear()
+    tracing.reset()
 
 
 def counts() -> dict[str, int]:
-    return {"rot3_fwd": R.FWD_LAUNCHES, "rot3_bwd": R.BWD_LAUNCHES,
-            "shear_fwd": SH.FWD_LAUNCHES, "shear_bwd": SH.BWD_LAUNCHES,
-            "upconv_fwd": UP.UP_FWD_LAUNCHES, "upconv_bwd": UP.UP_BWD_LAUNCHES,
-            "phasemax_fwd": UP.PMAX_FWD_LAUNCHES, "phasemax_bwd": UP.PMAX_BWD_LAUNCHES}
+    return kernel_launches()
+
+
+def variant_counts() -> dict[str, int]:
+    """The planned kernels' launches by variant ("upconv_fwd vector", ...)."""
+    return {k: v for k, v in tracing.counters().items() if k not in KERNELS}
 
 
 def rvae(decode: int = 0, decode_bwd: int = 0, localize: int = 0, localize_bwd: int = 0,
@@ -1180,7 +1181,7 @@ def main_path(ds, build_s: float):
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     launches = counts()
-    variants = dict(UP.VARIANT_LAUNCHES)
+    variants = variant_counts()
     m = ENCODE_STEPS * BATCH
     check(tuple(mu.shape) == (m, LATENT) and tuple(logvar.shape) == (m, LATENT)
           and tuple(theta.shape) == (m, 1), "encode shapes")

@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..ops.fft import host_bandpass_normalize
 from ..ops.lattice import build_adaptive_lattice, estimate_lattice_constant
 from ..ops.peaks import get_clean_peaks
+from ..tracing import span
 from .pipeline import AugmentConfig, extract_batch, extract_batch_paired, pad_frames
 
 __all__ = [
@@ -124,7 +125,10 @@ class _SiteDatasetBase:
     def batch_at(self, indices, generator: torch.Generator | None = None):
         """Extract specific sites; no generator means no augmentation (the
         encode path)."""
-        return self._extract(self._indices(indices), generator)
+        with span("indices"):
+            idx = self._indices(indices)
+        with span("extract"):
+            return self._extract(idx, generator)
 
     def iter_epoch(self, generator: torch.Generator, batch_size: int, drop_last: bool = True):
         """Shuffled epoch iterator of device batches."""

@@ -16,6 +16,9 @@ then the flips and the roll jitter on the rotated patch.
 Paired semantics: `rotated = rotate(patch, +angle)` in the STN grid
 convention, so theta_rotated = theta_original - angle, the relation the
 cycle-consistency loss expects. Patches come out NCHW, [B, 1, P, P].
+
+Both extractions record their phases as spans (`livae_tpu_torch.tracing`):
+`crop`, `resample`, `rotate` (where a batch is rotated) and `normalize`.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resample import rotate_image_fast
+from ..tracing import span
 
 __all__ = [
     "AugmentConfig",
@@ -201,19 +205,25 @@ def extract_batch_paired_with_draws(
     P2, roi, default_margin = _default_margin(patch_size, padding)
     if margin is None:
         margin = default_margin
-    rois, ry, rx = _crop_rois(frames_padded, img_idx, centers[:, 0], centers[:, 1], roi, margin)
-    p_big = _scale_translate(rois, ry, rx, P2, draws.scale, draws.flip_h, draws.flip_v,
-                             draws.jy, draws.jx)
-    rot_in = p_big[:, None]
-    if rot_dtype is not None:
-        rot_in = rot_in.to(getattr(torch, rot_dtype))
-    rot_big = rotate_image_fast(rot_in, draws.angle, padding_mode="zeros", margin=P2 // 6)[:, 0]
+    with span("crop"):
+        rois, ry, rx = _crop_rois(frames_padded, img_idx, centers[:, 0], centers[:, 1], roi,
+                                  margin)
+    with span("resample"):
+        p_big = _scale_translate(rois, ry, rx, P2, draws.scale, draws.flip_h, draws.flip_v,
+                                 draws.jy, draws.jx)
+    with span("rotate"):
+        rot_in = p_big[:, None]
+        if rot_dtype is not None:
+            rot_in = rot_in.to(getattr(torch, rot_dtype))
+        rot_big = rotate_image_fast(rot_in, draws.angle, padding_mode="zeros",
+                                    margin=P2 // 6)[:, 0]
 
-    patch = _center_crop_b(p_big, patch_size)
-    rotated = _center_crop_b(rot_big, patch_size)
-    if normalize:
-        patch = _minmax_normalize(patch)
-        rotated = _minmax_normalize(rotated)
+    with span("normalize"):
+        patch = _center_crop_b(p_big, patch_size)
+        rotated = _center_crop_b(rot_big, patch_size)
+        if normalize:
+            patch = _minmax_normalize(patch)
+            rotated = _minmax_normalize(rotated)
     return patch[:, None], rotated[:, None], draws.angle
 
 
@@ -248,7 +258,9 @@ def extract_batch(
     if margin is None:
         margin = default_margin
     B = img_idx.shape[0]
-    rois, ry, rx = _crop_rois(frames_padded, img_idx, centers[:, 0], centers[:, 1], roi, margin)
+    with span("crop"):
+        rois, ry, rx = _crop_rois(frames_padded, img_idx, centers[:, 0], centers[:, 1], roi,
+                                  margin)
     dev = frames_padded.device
     if cfg is not None and draws is None and generator is not None:
         draws = sample_paired_draws(B, cfg, generator, dev)
@@ -258,15 +270,19 @@ def extract_batch(
         draws = PairedDraws(torch.ones(B, device=dev), no_flip, no_flip, no_jit, no_jit,
                             torch.zeros(B, device=dev))
     if cfg is None or not cfg.rotation:
-        p = _scale_translate(rois, ry, rx, P2, draws.scale, draws.flip_h, draws.flip_v,
-                             draws.jy, draws.jx)
+        with span("resample"):
+            p = _scale_translate(rois, ry, rx, P2, draws.scale, draws.flip_h, draws.flip_v,
+                                 draws.jy, draws.jx)
     else:
         # the flips and the jitter follow the rotation here, so they cannot fold
-        p = _scale_translate(rois, ry, rx, P2, draws.scale, no_flip, no_flip, no_jit, no_jit)
-        p = rotate_image_fast(p[:, None], draws.angle, padding_mode="zeros",
-                              margin=P2 // 6)[:, 0]
-        p = _flips_and_jitter(p, draws.flip_h, draws.flip_v, draws.jy, draws.jx)
-    p = _center_crop_b(p, patch_size)
-    if normalize:
-        p = _minmax_normalize(p)
+        with span("resample"):
+            p = _scale_translate(rois, ry, rx, P2, draws.scale, no_flip, no_flip, no_jit, no_jit)
+        with span("rotate"):
+            p = rotate_image_fast(p[:, None], draws.angle, padding_mode="zeros",
+                                  margin=P2 // 6)[:, 0]
+            p = _flips_and_jitter(p, draws.flip_h, draws.flip_v, draws.jy, draws.jx)
+    with span("normalize"):
+        p = _center_crop_b(p, patch_size)
+        if normalize:
+            p = _minmax_normalize(p)
     return p[:, None]

@@ -16,42 +16,27 @@ once to the input dtype.
 * `rot3` dispatches on the device: CPU tensors take the plain version, CUDA
   tensors the kernels; there is no fallback from one to the other.
 
-`FWD_LAUNCHES` and `BWD_LAUNCHES` count kernel launches, so a run can show
-that its path went through the kernels; a lock keeps the counts exact when
-several threads launch (the sweep's thread executor).
+Each launch adds one to the counter "rot3_fwd" or "rot3_bwd" of
+`livae_tpu_torch.tracing`, so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from dataclasses import dataclass
 
 import torch
 
+from .. import tracing
 from . import _build
 from .shear import fold_lanes, lerp_shift
 
 __all__ = [
     "rot3", "rot3_reference", "Rot3Function", "MAX_P", "LaunchPlan", "launch_plan",
-    "active_clusters", "FWD_LAUNCHES", "BWD_LAUNCHES",
+    "active_clusters",
 ]
-
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
-
-
-def _count_launch(direction: str) -> None:
-    """Add one to the launch count of `direction` ("fwd" or "bwd")."""
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    with _COUNT_LOCK:
-        if direction == "fwd":
-            FWD_LAUNCHES += 1
-        else:
-            BWD_LAUNCHES += 1
-
 
 # The kernels' limit (ops/csrc/rot3.cu, kMaxP): about the largest canvas whose
 # backward fits a cluster of 8 blocks. Larger canvases take the per-shear path.
@@ -176,7 +161,7 @@ def _launch_fwd(x: torch.Tensor, d_row: torch.Tensor, d_col: torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"rot3 forward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("fwd")
+    tracing.count("rot3_fwd")
     return out
 
 
@@ -203,7 +188,7 @@ def _launch_bwd(x, d_row, d_col, g, with_dx: bool = True, cluster: int | None = 
         )
     if err != 0:
         raise RuntimeError(f"rot3 backward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("bwd")
+    tracing.count("rot3_bwd")
     return dx, ddr, ddc
 
 

@@ -21,19 +21,19 @@ per-shear path of ops.resample.rotate_image_fast).
   version, CUDA tensors the kernels; there is no fallback from one to the
   other.
 
-`FWD_LAUNCHES` and `BWD_LAUNCHES` count kernel launches, so a run can show
-that its path went through the kernels; a lock keeps the counts exact when
-several threads launch (the sweep's thread executor).
+Each launch adds one to the counter "shear_fwd" or "shear_bwd" of
+`livae_tpu_torch.tracing`, so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 
 import torch
 
+from .. import tracing
 from . import _build
 
 __all__ = [
@@ -45,24 +45,7 @@ __all__ = [
     "ShearPlan",
     "launch_plan",
     "blocks_per_sm",
-    "FWD_LAUNCHES",
-    "BWD_LAUNCHES",
 ]
-
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
-
-
-def _count_launch(direction: str) -> None:
-    """Add one to the launch count of `direction` ("fwd" or "bwd")."""
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    with _COUNT_LOCK:
-        if direction == "fwd":
-            FWD_LAUNCHES += 1
-        else:
-            BWD_LAUNCHES += 1
-
 
 THREADS = 256  # per block (kThreads in ops/csrc/shear.cu)
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use on sm_90
@@ -265,7 +248,7 @@ def _launch_fwd(x: torch.Tensor, delta: torch.Tensor, axis: int,
                                   stream)
     if err != 0:
         raise RuntimeError(f"shear forward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("fwd")
+    tracing.count("shear_fwd")
     return out
 
 
@@ -290,7 +273,7 @@ def _launch_bwd(x: torch.Tensor, delta: torch.Tensor, g: torch.Tensor, axis: int
                                   plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"shear backward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("bwd")
+    tracing.count("shear_bwd")
     return dx, ddelta
 
 

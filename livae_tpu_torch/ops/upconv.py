@@ -52,23 +52,22 @@ Weights are cast to the compute dtype before the phase kernels are built, as
 the JAX layers do; the phase kernel then rounds as JAX's einsum does (one
 rounding after each of its two contractions).
 
-`UP_FWD_LAUNCHES`, `UP_BWD_LAUNCHES`, `PMAX_FWD_LAUNCHES` and
-`PMAX_BWD_LAUNCHES` count the kernels' launches, and `VARIANT_LAUNCHES` the
-planned kernels' launches by variant ("upconv_fwd vector", ...); a lock keeps
-them exact when several threads launch.
+Each launch adds one to its kernel's counter of `livae_tpu_torch.tracing`
+("upconv_fwd", "upconv_bwd", "phasemax_fwd", "phasemax_bwd"), and a planned
+kernel's launch also to its variant's ("upconv_fwd vector", ...).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import _build
 from .shear import fold_lanes
 
@@ -90,29 +89,7 @@ __all__ = [
     "UpconvPlan",
     "launch_plan",
     "alignment",
-    "UP_FWD_LAUNCHES",
-    "UP_BWD_LAUNCHES",
-    "PMAX_FWD_LAUNCHES",
-    "PMAX_BWD_LAUNCHES",
-    "VARIANT_LAUNCHES",
 ]
-
-UP_FWD_LAUNCHES = 0
-UP_BWD_LAUNCHES = 0
-PMAX_FWD_LAUNCHES = 0
-PMAX_BWD_LAUNCHES = 0
-VARIANT_LAUNCHES: dict[str, int] = {}
-_COUNT_LOCK = threading.Lock()
-
-
-def _count_launch(name: str, plan: "UpconvPlan | None" = None) -> None:
-    """Add one to the launch count `name` (one of the four above) and, for a
-    planned kernel, to its variant's count in VARIANT_LAUNCHES."""
-    with _COUNT_LOCK:
-        globals()[name] += 1
-        if plan is not None:
-            key = f"{plan.kernel} {plan.variant}"
-            VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 # Per-axis phase transforms A_p[s, a]: the coefficient of input tap s in
@@ -765,7 +742,8 @@ def _launch_upconv_fwd(y, qr, qc, bias, relu: bool, elems: int | None = None) ->
                                       plan.threads, plan.blocks, _stream(y))
     if err != 0:
         raise RuntimeError(f"upconv forward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("UP_FWD_LAUNCHES", plan)
+    tracing.count("upconv_fwd")
+    tracing.count(f"upconv_fwd {plan.variant}")
     return out
 
 
@@ -795,7 +773,8 @@ def _launch_upconv_bwd(g, out, elems: int | None = None):
                                       _stream(g))
     if err != 0:
         raise RuntimeError(f"upconv backward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("UP_BWD_LAUNCHES", plan)
+    tracing.count("upconv_bwd")
+    tracing.count(f"upconv_bwd {plan.variant}")
     return gy, gqr, gqc
 
 
@@ -815,7 +794,7 @@ def _launch_pmax_fwd(y, bias):
                                         int(y.dtype == torch.bfloat16), _stream(y))
     if err != 0:
         raise RuntimeError(f"phase max forward kernel launch failed: CUDA error {err}")
-    _count_launch("PMAX_FWD_LAUNCHES")
+    tracing.count("phasemax_fwd")
     return out, win
 
 
@@ -836,7 +815,8 @@ def _launch_pmax_bwd(g, win, elems: int | None = None):
                                         plan.threads, plan.blocks, _stream(g))
     if err != 0:
         raise RuntimeError(f"phase max backward kernel launch failed: CUDA error {err} ({plan})")
-    _count_launch("PMAX_BWD_LAUNCHES", plan)
+    tracing.count("phasemax_bwd")
+    tracing.count(f"phasemax_bwd {plan.variant}")
     return gy
 
 

@@ -22,10 +22,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.h5 import load_image_from_h5
 from ..data.synthetic import synthetic_mos2_frame
 from ..device import resolve_device
-from ..ops import rot3, shear, upconv
 from ..parallel.mesh import (
     DataMesh,
     dense_param_specs,
@@ -213,12 +213,14 @@ def state_digest(model, optimizer, scheduler=None, mesh: DataMesh | None = None)
     return h.hexdigest()[:16]
 
 
+KERNELS = ("rot3_fwd", "rot3_bwd", "shear_fwd", "shear_bwd", "upconv_fwd", "upconv_bwd",
+           "phasemax_fwd", "phasemax_bwd")
+
+
 def kernel_launches() -> dict[str, int]:
     """The CUDA kernels' launch counters (0 on the CPU, which launches none)."""
-    return {"rot3_fwd": rot3.FWD_LAUNCHES, "rot3_bwd": rot3.BWD_LAUNCHES,
-            "shear_fwd": shear.FWD_LAUNCHES, "shear_bwd": shear.BWD_LAUNCHES,
-            "upconv_fwd": upconv.UP_FWD_LAUNCHES, "upconv_bwd": upconv.UP_BWD_LAUNCHES,
-            "phasemax_fwd": upconv.PMAX_FWD_LAUNCHES, "phasemax_bwd": upconv.PMAX_BWD_LAUNCHES}
+    counts = tracing.counters()
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 def card_description(device: torch.device) -> str:
@@ -239,7 +241,9 @@ def sync(device: torch.device) -> None:
 
 @contextlib.contextmanager
 def profile_epoch(enabled: bool, log_dir: str, device: torch.device):
-    """Trace the enclosed epoch with torch.profiler into <log-dir>/profile."""
+    """Trace the enclosed epoch with torch.profiler into <log-dir>/profile;
+    the program's spans (`livae_tpu_torch.tracing`) go into its trace as
+    record_function ranges of their names."""
     if not enabled:
         yield
         return
@@ -248,7 +252,7 @@ def profile_epoch(enabled: bool, log_dir: str, device: torch.device):
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     out = Path(log_dir) / "profile"
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, tracing.recording(ranges=True):
         yield
         sync(device)
     prof.export_chrome_trace(str(out / "trace.json"))

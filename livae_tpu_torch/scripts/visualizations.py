@@ -33,6 +33,7 @@ from ..data.datasets import AdaptiveLatticeDataset
 from ..device import resolve_device
 from ..models.rvae import RVAE
 from ..models.vae import VAE
+from ..tracing import span
 from ..utils.checkpoint import load_reference_checkpoint
 from ._common import add_data_flags, batched, prebuild_kernels, resolve_images
 
@@ -103,29 +104,33 @@ def collect_stats(model, dataset, batch_size: int, is_rvae: bool, eps=None):
     The noise of each batch is the first rows of `eps` [batch_size, latent]
     where given, else a generator seeded 0 per batch (the JAX script's key(0)
     for every batch). Results stay on the device until the end: one transfer.
+    Spans (`livae_tpu_torch.tracing`): `encode.pass`, one `encode.batch` a
+    batch (its `indices`, `extract` and `forward`), then `host_copy`.
     """
-    cum_lens = np.cumsum([0] + [len(c) for c in dataset.sample_coords])
-    n = len(dataset)
-    mus, logvars, errs = [], [], []
-    for chunk in batched(np.arange(n), batch_size, drop_last=False):
-        x = dataset.batch_at(chunk)  # transform=None: no augmentation
-        if eps is None:
-            gen = torch.Generator(device=x.device).manual_seed(0)
-            mu, logvar, err = _batch_stats(model, x, is_rvae, generator=gen)
-        else:
-            mu, logvar, err = _batch_stats(model, x, is_rvae, eps[: len(chunk)])
-        mus.append(mu)
-        logvars.append(logvar)
-        errs.append(err)
-    sites = np.arange(n)
-    img_idx = np.searchsorted(cum_lens, sites, side="right") - 1
-    idx_map = [(int(i), int(g - cum_lens[i])) for g, i in zip(sites, img_idx)]
-    return (
-        torch.cat(mus).cpu().numpy(),
-        torch.cat(logvars).cpu().numpy(),
-        torch.cat(errs).cpu().numpy(),
-        idx_map,
-    )
+    with span("encode.pass", new_tag=True):
+        cum_lens = np.cumsum([0] + [len(c) for c in dataset.sample_coords])
+        n = len(dataset)
+        mus, logvars, errs = [], [], []
+        for chunk in batched(np.arange(n), batch_size, drop_last=False):
+            with span("encode.batch", new_tag=True):
+                x = dataset.batch_at(chunk)  # transform=None: no augmentation
+                noise = ((None, torch.Generator(device=x.device).manual_seed(0)) if eps is None
+                         else (eps[: len(chunk)], None))
+                with span("forward"):
+                    mu, logvar, err = _batch_stats(model, x, is_rvae, *noise)
+                mus.append(mu)
+                logvars.append(logvar)
+                errs.append(err)
+        sites = np.arange(n)
+        img_idx = np.searchsorted(cum_lens, sites, side="right") - 1
+        idx_map = [(int(i), int(g - cum_lens[i])) for g, i in zip(sites, img_idx)]
+        with span("host_copy"):
+            return (
+                torch.cat(mus).cpu().numpy(),
+                torch.cat(logvars).cpu().numpy(),
+                torch.cat(errs).cpu().numpy(),
+                idx_map,
+            )
 
 
 def embed_latents(latent: np.ndarray, method: str = "auto", seed: int = 42) -> np.ndarray:

@@ -27,6 +27,12 @@ metrics are those of the global batch (parallel/mesh.py). A model placed
 with `parallel.place_with_specs` holds slices of its large dense layers; the
 clip then takes the norm of the whole model: the split gradients' squares
 summed over the model group, the replicated ones counted once.
+
+Spans (`livae_tpu_torch.tracing`): each row of a fused train step is one
+`train.step` (its `draws`, `extract`, `forward`, `loss`, `backward`, `clip`,
+`optimizer` with the schedule, and `metrics`), each fused eval batch one
+`eval.batch` (`draws`, `extract`, `forward`, `metrics`) inside
+`evaluate_fused`'s `eval.pass`; `metrics_to_host` is `host_read`.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..data.pipeline import (
     sample_paired_draws,
 )
 from ..device import resolve_device
+from ..tracing import span
 from ..losses import rotation_diversity_loss, rvae_loss, vae_loss
 from ..metrics import compute_psnr, compute_ssim, latent_stats, psnr, ssim
 from ..ops.resample import rotate_image_fast
@@ -183,8 +190,11 @@ def _paired_terms(outputs, x, angle, beta, gamma, use_diversity, canonical_weigh
 def _rvae_paired_loss(model, x, x_rot, angle, beta, gamma, use_diversity,
                       canonical_weight, eps=None, generator=None, mesh=None):
     """`_paired_terms` of the model's paired forward. Returns (total, aux)."""
-    return _paired_terms(model.train_forward_paired(x, x_rot, eps, generator), x, angle, beta,
-                         gamma, use_diversity, canonical_weight, mesh)
+    with span("forward"):
+        outputs = model.train_forward_paired(x, x_rot, eps, generator)
+    with span("loss"):
+        return _paired_terms(outputs, x, angle, beta, gamma, use_diversity, canonical_weight,
+                             mesh)
 
 
 class _Objective(torch.nn.Module):
@@ -257,21 +267,27 @@ def _update(model, optimizer, total, grad_max_norm, scheduler=None,
     """Backward, global-norm clip over every parameter of the model (also those
     the optimizer does not hold, a frozen STN's), optimizer step, then one step
     of the schedule; returns the reported norm."""
-    for p in model.parameters():
-        p.grad = None
-    total.backward()
-    held = [p for p in model.parameters() if p.grad is not None]
-    gnorm = _clip_by_global_norm([p.grad for p in held], grad_max_norm,
-                                 [is_model_sharded(p) for p in held], mesh)
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
+    with span("backward"):
+        for p in model.parameters():
+            p.grad = None
+        total.backward()
+    with span("clip"):
+        held = [p for p in model.parameters() if p.grad is not None]
+        gnorm = _clip_by_global_norm([p.grad for p in held], grad_max_norm,
+                                     [is_model_sharded(p) for p in held], mesh)
+    with span("optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
     return gnorm
 
 
 def _generic_loss(model, x, beta, gamma, use_diversity, eps=None, generator=None, mesh=None):
     """`_generic_terms` of the model's forward. Returns (total, aux)."""
-    return _generic_terms(model(x, eps, generator), x, beta, gamma, use_diversity, mesh)
+    with span("forward"):
+        outputs = model(x, eps, generator)
+    with span("loss"):
+        return _generic_terms(outputs, x, beta, gamma, use_diversity, mesh)
 
 
 def _generic_terms(outputs, x, beta, gamma, use_diversity, mesh: DataMesh | None = None):
@@ -398,26 +414,29 @@ def make_fused_rvae_train_step(model, optimizer, *, patch_size: int, padding: in
         acc = torch.zeros(len(FUSED_METRIC_NAMES), device=dev)
         theta_sums = []
         for i, idx in enumerate(idx_batches):
-            with torch.no_grad():
-                d, e = _global_draws(idx.shape[0], cfg, generator, dev,
-                                     None if draws is None else draws[i],
-                                     None if eps is None else eps[i], _latent_dim(model),
-                                     mesh, paired=True)
-                idx = shard_batch(idx, mesh)
-                x, x_rot, angle = extract_batch_paired_with_draws(
-                    frames_padded, img_idx[idx], coords[idx], d, patch_size, padding,
-                    margin=margin, normalize=normalize, rot_dtype=rot_dtype,
-                )
-            total, aux = objective(x, x_rot, angle, beta, gamma, e, generator)
-            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler, mesh)
-            with torch.no_grad():
-                if mesh is None:
-                    theta_std = torch.std(aux["theta"])
-                else:  # the global batch's std, from every rank's sums after the loop
-                    theta_std = torch.zeros((), device=dev)
-                    theta_sums.append(_theta_sums(aux["theta"]))
-                acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], aux["canon_l"],
-                                    theta_std, gnorm]).detach()
+            with span("train.step", new_tag=True):
+                with torch.no_grad():
+                    with span("draws"):
+                        d, e = _global_draws(idx.shape[0], cfg, generator, dev,
+                                             None if draws is None else draws[i],
+                                             None if eps is None else eps[i], _latent_dim(model),
+                                             mesh, paired=True)
+                        idx = shard_batch(idx, mesh)
+                    with span("extract"):
+                        x, x_rot, angle = extract_batch_paired_with_draws(
+                            frames_padded, img_idx[idx], coords[idx], d, patch_size, padding,
+                            margin=margin, normalize=normalize, rot_dtype=rot_dtype,
+                        )
+                total, aux = objective(x, x_rot, angle, beta, gamma, e, generator)
+                gnorm = _update(model, optimizer, total, grad_max_norm, scheduler, mesh)
+                with torch.no_grad(), span("metrics"):
+                    if mesh is None:
+                        theta_std = torch.std(aux["theta"])
+                    else:  # the global batch's std, from every rank's sums after the loop
+                        theta_std = torch.zeros((), device=dev)
+                        theta_sums.append(_theta_sums(aux["theta"]))
+                    acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], aux["canon_l"],
+                                        theta_std, gnorm]).detach()
         if mesh is not None:
             acc = all_reduce_mean(acc, mesh)
             acc[FUSED_METRIC_NAMES.index("rotation_std")] = _global_std(
@@ -453,18 +472,22 @@ def make_fused_vae_train_step(model, optimizer, *, patch_size: int, padding: int
              draws: list[PairedDraws] | None = None, eps=None):
         acc = torch.zeros(len(FUSED_VAE_METRIC_NAMES), device=dev)
         for i, idx in enumerate(idx_batches):
-            with torch.no_grad():
-                d, e = _global_draws(idx.shape[0], cfg, generator, dev,
-                                     None if draws is None else draws[i],
-                                     None if eps is None else eps[i], _latent_dim(model),
-                                     mesh, paired=False)
-                idx = shard_batch(idx, mesh)
-                x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
-                                  normalize=normalize, margin=margin, cfg=cfg, draws=d)
-            total, aux = objective(x, beta, gamma, e, generator)
-            gnorm = _update(model, optimizer, total, grad_max_norm, scheduler, mesh)
-            with torch.no_grad():
-                acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], gnorm]).detach()
+            with span("train.step", new_tag=True):
+                with torch.no_grad():
+                    with span("draws"):
+                        d, e = _global_draws(idx.shape[0], cfg, generator, dev,
+                                             None if draws is None else draws[i],
+                                             None if eps is None else eps[i], _latent_dim(model),
+                                             mesh, paired=False)
+                        idx = shard_batch(idx, mesh)
+                    with span("extract"):
+                        x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size,
+                                          padding, normalize=normalize, margin=margin, cfg=cfg,
+                                          draws=d)
+                total, aux = objective(x, beta, gamma, e, generator)
+                gnorm = _update(model, optimizer, total, grad_max_norm, scheduler, mesh)
+                with torch.no_grad(), span("metrics"):
+                    acc += torch.stack([total, aux["rl"], aux["kl"], aux["cyc"], gnorm]).detach()
         return dict(zip(FUSED_VAE_METRIC_NAMES, all_reduce_mean(acc, mesh) / len(idx_batches)))
 
     return step
@@ -531,23 +554,29 @@ def make_fused_rvae_eval(model, *, patch_size: int, padding: int, cfg, margin: i
                  draws: list[PairedDraws] | None = None, eps=None):
         per_batch = []
         for i, idx in enumerate(idx_batches):
-            d, e = _global_draws(idx.shape[0], cfg, generator, dev,
-                                 None if draws is None else draws[i],
-                                 None if eps is None else eps[i], _latent_dim(model), mesh,
-                                 paired=True)
-            idx = shard_batch(idx, mesh)
-            x, x_rot, angle = extract_batch_paired_with_draws(
-                frames_padded, img_idx[idx], coords[idx], d, patch_size, padding,
-                margin=margin, normalize=normalize, rot_dtype=rot_dtype,
-            )
-            outputs = None
-            if mesh is not None:
-                outputs = _gathered(model.train_forward_paired(x, x_rot, e), mesh)
-                x, angle = gather_rows(x, mesh), gather_rows(angle, mesh)
-            per_batch.append(_rvae_eval_metrics(
-                model, x, x_rot, angle, beta, gamma, use_diversity, canonical_weight, e,
-                generator, outputs,
-            ))
+            with span("eval.batch", new_tag=True):
+                with span("draws"):
+                    d, e = _global_draws(idx.shape[0], cfg, generator, dev,
+                                         None if draws is None else draws[i],
+                                         None if eps is None else eps[i], _latent_dim(model),
+                                         mesh, paired=True)
+                    idx = shard_batch(idx, mesh)
+                with span("extract"):
+                    x, x_rot, angle = extract_batch_paired_with_draws(
+                        frames_padded, img_idx[idx], coords[idx], d, patch_size, padding,
+                        margin=margin, normalize=normalize, rot_dtype=rot_dtype,
+                    )
+                with span("forward"):
+                    if mesh is None:
+                        outputs = model.train_forward_paired(x, x_rot, e, generator)
+                    else:
+                        outputs = _gathered(model.train_forward_paired(x, x_rot, e), mesh)
+                        x, angle = gather_rows(x, mesh), gather_rows(angle, mesh)
+                with span("metrics"):
+                    per_batch.append(_rvae_eval_metrics(
+                        model, x, x_rot, angle, beta, gamma, use_diversity, canonical_weight, e,
+                        generator, outputs,
+                    ))
         return {k: torch.stack([m[k] for m in per_batch]) for k in per_batch[0]}
 
     return evaluate
@@ -598,19 +627,26 @@ def make_fused_eval(model, *, patch_size: int, padding: int, margin: int,
     def evaluate(frames_padded, img_idx, coords, idx_batches, generator, beta, gamma, eps=None):
         per_batch = []
         for i, idx in enumerate(idx_batches):
-            _, e = _global_draws(idx.shape[0], None, generator, dev, None,
-                                 None if eps is None else eps[i], _latent_dim(model), mesh,
-                                 paired=False)
-            idx = shard_batch(idx, mesh)
-            x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size, padding,
-                              normalize=normalize, margin=margin)
-            outputs = None
-            if mesh is not None:
-                outputs = _gathered(model(x, e), mesh)
-                x = gather_rows(x, mesh)
-            per_batch.append(_generic_eval_metrics(
-                model, x, beta, gamma, use_diversity, canonical_weight, e, generator, outputs,
-            ))
+            with span("eval.batch", new_tag=True):
+                with span("draws"):
+                    _, e = _global_draws(idx.shape[0], None, generator, dev, None,
+                                         None if eps is None else eps[i], _latent_dim(model),
+                                         mesh, paired=False)
+                    idx = shard_batch(idx, mesh)
+                with span("extract"):
+                    x = extract_batch(frames_padded, img_idx[idx], coords[idx], patch_size,
+                                      padding, normalize=normalize, margin=margin)
+                with span("forward"):
+                    if mesh is None:
+                        outputs = model(x, e, generator)
+                    else:
+                        outputs = _gathered(model(x, e), mesh)
+                        x = gather_rows(x, mesh)
+                with span("metrics"):
+                    per_batch.append(_generic_eval_metrics(
+                        model, x, beta, gamma, use_diversity, canonical_weight, e, generator,
+                        outputs,
+                    ))
         return {k: torch.stack([m[k] for m in per_batch]) for k in per_batch[0]}
 
     return evaluate
@@ -624,25 +660,29 @@ def evaluate_fused(fused_eval, site_table, val_idx, batch_size: int, generator,
     `tail_eval` where given (the eval without a mesh, as the JAX package's
     `tail_eval`). Batches weigh equally, the tail too."""
     frames_padded, img_idx, coords, _ = site_table
-    val_idx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long, device=frames_padded.device)
-    n = len(val_idx)
-    bs = min(batch_size, n)
-    n_full = n // bs
-    per_batch = []
-    if n_full > 0:
-        main = val_idx[: n_full * bs].reshape(n_full, bs)
-        per_batch.append(fused_eval(frames_padded, img_idx, coords, main, generator, beta, gamma))
-    if n_full * bs < n:
-        tail = val_idx[n_full * bs :].reshape(1, -1)
-        per_batch.append((tail_eval or fused_eval)(frames_padded, img_idx, coords, tail,
-                                                   generator, beta, gamma))
-    sums: dict[str, float] = defaultdict(float)
-    count = 0
-    for d in per_batch:
-        d = metrics_to_host(d)  # one transfer per fused-eval dict
-        count += len(next(iter(d.values())))
-        for k, v in d.items():
-            sums[k] += float(np.sum(v))
+    with span("eval.pass", new_tag=True):
+        with span("indices"):
+            val_idx = torch.as_tensor(np.asarray(val_idx), dtype=torch.long,
+                                      device=frames_padded.device)
+        n = len(val_idx)
+        bs = min(batch_size, n)
+        n_full = n // bs
+        per_batch = []
+        if n_full > 0:
+            main = val_idx[: n_full * bs].reshape(n_full, bs)
+            per_batch.append(fused_eval(frames_padded, img_idx, coords, main, generator, beta,
+                                        gamma))
+        if n_full * bs < n:
+            tail = val_idx[n_full * bs :].reshape(1, -1)
+            per_batch.append((tail_eval or fused_eval)(frames_padded, img_idx, coords, tail,
+                                                       generator, beta, gamma))
+        sums: dict[str, float] = defaultdict(float)
+        count = 0
+        for d in per_batch:
+            d = metrics_to_host(d)  # one transfer per fused-eval dict
+            count += len(next(iter(d.values())))
+            for k, v in d.items():
+                sums[k] += float(np.sum(v))
     avg = {prefix + k: v / count for k, v in sums.items()}
     if metric_logger is not None:
         metric_logger.update(**avg)
@@ -738,8 +778,9 @@ def metrics_to_host(metrics: dict) -> dict[str, np.ndarray]:
     names = list(metrics)
     if not names:
         return {}
-    vals = [torch.as_tensor(metrics[n]).float() for n in names]
-    flat = torch.cat([v.reshape(-1) for v in vals]).cpu().numpy()
+    with span("host_read"):
+        vals = [torch.as_tensor(metrics[n]).float() for n in names]
+        flat = torch.cat([v.reshape(-1) for v in vals]).cpu().numpy()
     out, off = {}, 0
     for n, v in zip(names, vals):
         out[n] = flat[off : off + v.numel()].reshape(tuple(v.shape))

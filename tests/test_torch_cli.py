@@ -3,6 +3,7 @@ train_vae): the parsers against the JAX scripts' parsers, and run_training
 in-process on the CPU at a small size (one 512-pixel synthetic frame, patch
 32, padding 8, batch 64, latent 8, f32)."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -260,5 +261,7 @@ def test_tensorboard_and_profile_outputs(tmp_path):
         [*flags, "--epochs", "2", "--vis-every", "1", "--vis-samples", "4", "--profile",
          "--log-dir", str(log_dir), "--checkpoint", str(tmp_path / "t" / "rvae.pt")])
     train_rvae.run_training(args)
-    assert (log_dir / "profile" / "trace.json").stat().st_size > 0
+    trace = json.loads((log_dir / "profile" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"train.step", "forward", "backward", "eval.batch"} <= names  # the program's spans
     assert any(p.name.startswith("events.out.tfevents") for p in log_dir.rglob("*"))

@@ -22,6 +22,7 @@ import torch
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import rot3 as R
 from livae_tpu_torch.ops import shear as SH
+from livae_tpu_torch.scripts._common import kernel_launches
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -125,29 +126,27 @@ def test_entry_points_raise_without_cuda(no_cuda):
             make()
 
 
-def test_rot3_on_cpu_takes_the_plain_version(rng, monkeypatch):
-    monkeypatch.setattr(R, "FWD_LAUNCHES", 0)
-    monkeypatch.setattr(R, "BWD_LAUNCHES", 0)
+def test_rot3_on_cpu_takes_the_plain_version(rng):
+    before = kernel_launches()
     x = torch.from_numpy(rng.standard_normal((2, 16, 16)).astype(np.float32))
     d = torch.from_numpy(rng.uniform(-3, 3, (2, 16)).astype(np.float32)).requires_grad_(True)
     out = R.rot3(x, d, d)
     out.sum().backward()
     assert torch.equal(out, R.rot3_reference(x, d, d))
-    assert R.FWD_LAUNCHES == 0 and R.BWD_LAUNCHES == 0
+    assert kernel_launches() == before
     assert not _build._LIBS
     with pytest.raises(ValueError, match="CUDA"):
         R.Rot3Function.apply(x, d, d)
 
 
-def test_shear_on_cpu_takes_the_plain_version(rng, monkeypatch):
-    monkeypatch.setattr(SH, "FWD_LAUNCHES", 0)
-    monkeypatch.setattr(SH, "BWD_LAUNCHES", 0)
+def test_shear_on_cpu_takes_the_plain_version(rng):
+    before = kernel_launches()
     x = torch.from_numpy(rng.standard_normal((2, 16, 12)).astype(np.float32))
     d = torch.from_numpy(rng.uniform(-3, 3, (2, 12)).astype(np.float32)).requires_grad_(True)
     out = SH.fractional_shift(x, d, 1)
     out.sum().backward()
     assert torch.equal(out, SH.fractional_shift_reference(x, d, 1))
-    assert SH.FWD_LAUNCHES == 0 and SH.BWD_LAUNCHES == 0
+    assert kernel_launches() == before
     assert not _build._LIBS
     with pytest.raises(ValueError, match="CUDA"):
         SH.FractionalShiftFunction.apply(x, d, 1)

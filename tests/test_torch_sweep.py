@@ -19,8 +19,7 @@ import livae_tpu.sweep as jsw
 import livae_tpu.sweep.search as jss
 import livae_tpu_torch.sweep as tsw
 import livae_tpu_torch.sweep.search as tss
-from livae_tpu_torch.ops import rot3 as R
-from livae_tpu_torch.ops import shear as SH
+from livae_tpu_torch import tracing
 
 ENGINES = {"jax": (jsw, jss), "port": (tsw, tss)}
 
@@ -152,20 +151,19 @@ def test_default_trial_env():
 
 
 @pytest.mark.parametrize("counter", ["rot3", "shear"])
-def test_launch_counters_are_exact_under_threads(counter, monkeypatch):
-    """Sixteen threads add to the launch counters at once, with the interpreter
-    switching threads every microsecond: no count is lost. The counters are
-    put back afterwards."""
-    mod = R if counter == "rot3" else SH
+def test_launch_counters_are_exact_under_threads(counter):
+    """Sixteen threads add to a kernel's launch counters in the registry
+    (`livae_tpu_torch.tracing`) at once, with the interpreter switching
+    threads every microsecond: no count is lost."""
     per_thread, n_threads = 2000, 16
-    monkeypatch.setattr(mod, "FWD_LAUNCHES", 0)
-    monkeypatch.setattr(mod, "BWD_LAUNCHES", 0)
+    fwd, bwd = f"{counter}_fwd", f"{counter}_bwd"
+    before = tracing.counters()
     start = threading.Barrier(n_threads)
 
     def work():
         start.wait()
         for i in range(per_thread):
-            mod._count_launch("fwd" if i % 2 else "bwd")
+            tracing.count(fwd if i % 2 else bwd)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -178,4 +176,6 @@ def test_launch_counters_are_exact_under_threads(counter, monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
-    assert mod.FWD_LAUNCHES == mod.BWD_LAUNCHES == n_threads * per_thread // 2
+    after = tracing.counters()
+    assert (after[fwd] - before.get(fwd, 0) == after[bwd] - before.get(bwd, 0)
+            == n_threads * per_thread // 2)

@@ -26,6 +26,7 @@ import torch
 
 from livae_tpu.models import layers as jlayers
 from livae_tpu.ops import upconv as jup
+from livae_tpu_torch import tracing
 from livae_tpu_torch.models import layers
 from livae_tpu_torch.ops import _build
 from livae_tpu_torch.ops import upconv as U
@@ -275,16 +276,15 @@ def test_bf16_decode_and_encode_match_jax(patch, latent):
                                    err_msg=name)
 
 
-def test_cpu_takes_the_plain_versions_and_the_functions_need_cuda(monkeypatch):
+def test_cpu_takes_the_plain_versions_and_the_functions_need_cuda():
     """CPU tensors run the plain versions: no launch counted, nothing built;
     the kernels' Functions refuse CPU tensors."""
-    for name in ("UP_FWD_LAUNCHES", "UP_BWD_LAUNCHES", "PMAX_FWD_LAUNCHES", "PMAX_BWD_LAUNCHES"):
-        monkeypatch.setattr(U, name, 0)
+    before = tracing.counters()
     x = torch.randn(2, 4, 8, 8, requires_grad=True)
     out = U.fused_upsample_reflect_conv(x, torch.randn(3, 4, 3, 3), torch.randn(3), relu=True)
     out.sum().backward()
     U.fused_conv5_relu_maxpool(x, torch.randn(3, 4, 5, 5), torch.randn(3)).sum().backward()
-    assert U.UP_FWD_LAUNCHES == U.UP_BWD_LAUNCHES == U.PMAX_FWD_LAUNCHES == U.PMAX_BWD_LAUNCHES == 0
+    assert tracing.counters() == before
     assert "upconv" not in _build._LIBS
     with pytest.raises(ValueError, match="CUDA"):
         U.UpconvFunction.apply(torch.zeros(1, 4, 2, 2), torch.zeros(1, 6, 2, 2),
