@@ -2,11 +2,12 @@
 `scripts/visualizations.collect_stats` over every site of the frames, un-augmented,
 at the traffic's padding and batch size, each pass ending in its host copy.
 
-The model is built as the analysis scripts build it (`RVAE(latent, patch)`:
-float32 tensors, the fast rotation), with the benchmark's weights in place
-of a checkpoint. The precision is PyTorch's default, which the scripts leave
-alone: the convolutions in TF32, the dense layers in float32; the run checks
-that the flags say what the configuration states.
+The model's binding builds it as the analysis scripts build it (the rVAE:
+`RVAE(latent, patch)`, float32 tensors, the fast rotation), with the
+benchmark's weights in place of a checkpoint. The precision is PyTorch's
+default, which the scripts leave alone: the convolutions in TF32, the dense
+layers in float32; the run checks that the flags say what the configuration
+states.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from .. import trace as T
+from .. import spec, trace as T
 from ..frames import stream_seed
 from ..reference import common as RC, drive, sites as ref_sites
 from .common import build_frames, init_device, make_weights, prebuild, sync
@@ -37,11 +38,11 @@ class Run:
     def __init__(self, cfg: dict, traffic: dict, seed: int, device, spans: T.Spans):
         self.cfg, self.traffic, self.seed, self.device, self.spans = cfg, traffic, seed, device, spans
         self.B = traffic["batch_size"]
+        self.binding = spec.binding(cfg["model"])
 
     def setup(self) -> None:
         with self.spans("program_import"):
             from livae_tpu_torch.data.datasets import AdaptiveLatticeDataset
-            from livae_tpu_torch.models.rvae import RVAE
             from livae_tpu_torch.scripts import visualizations
 
         cfg, dev = self.cfg, self.device
@@ -57,8 +58,7 @@ class Run:
                 self.frames, patch_size=cfg["patch_size"], padding=self.traffic["padding"],
                 transform=None, normalize=cfg["normalize"], device=dev)
         with self.spans("model"):
-            model = RVAE(latent_dim=cfg["latent_dim"], patch_size=cfg["patch_size"], device=dev,
-                         generator=torch.Generator().manual_seed(0))
+            model, self.is_rvae = self.binding.analysis_model(cfg, dev)
             self.w0 = make_weights(model, self.seed, cfg["init"], dev)
             model.load_state_dict(self.w0)
             self.model = model.eval()
@@ -70,7 +70,7 @@ class Run:
             self.passes = [self._pass()]
 
     def _pass(self):
-        mu, logvar, err, _ = self.collect(self.model, self.ds, self.B, True)
+        mu, logvar, err, _ = self.collect(self.model, self.ds, self.B, self.is_rvae)
         return mu, logvar, err
 
     def window(self, seconds: float) -> dict:
@@ -137,15 +137,18 @@ def compare(ev: dict, cfg: dict, traffic: dict, device, sides=("program",)) -> d
         bad = {"site_count_gap": float(abs(len(coords) - ev["n_sites"])),
                **{k: math.inf for k in READINGS}}
         return {side: bad for side in sides}
-    args = (ev["w0"], torch.as_tensor(frames, device=device), torch.as_tensor(img_idx, device=device),
-            torch.as_tensor(coords, device=device), cfg, padding, batch)
+    b = spec.binding(cfg["model"])
+    args = (b.reference_stats, ev["w0"], torch.as_tensor(frames, device=device),
+            torch.as_tensor(img_idx, device=device), torch.as_tensor(coords, device=device), cfg,
+            padding, batch)
     encode = lambda precision: {k: v.cpu().numpy() for k, v in
                                 drive.encode_all(*args, precision, latent).items()}
     ref = encode({"conv": "float32", "io": "float32"})
     got = {"program": lambda: ev, "control": lambda: encode(cfg["precision"]["analyze"]["control"]),
            "altered": lambda: altered(ev)}
     conv = cfg["precision"]["analyze"]["conv"]
-    return {side: readings(got[side](), ref, ev["w0"], side, conv) for side in sides}
+    biases = {name: ev["w0"][key] for name, key in b.LATENT_BIASES.items()}
+    return {side: readings(got[side](), ref, biases, side, conv) for side in sides}
 
 
 READINGS = ("err_gap_q99", "err_gap_max", "mu_gap_q99", "mu_gap_max", "logvar_gap_q99",
@@ -157,39 +160,44 @@ READINGS = ("err_gap_q99", "err_gap_max", "mu_gap_q99", "mu_gap_max", "logvar_ga
 UNIT_ROUNDOFF = {"tf32": 2.0 ** -11}
 
 
-def _latent_gaps(got: dict, ref: dict, w0: dict | None) -> dict:
+def _latent_gaps(got: dict, ref: dict, biases: dict | None) -> dict:
     """mu's and logvar's largest gap per site over the size of the
     reference's output (the root mean square, over sites and dimensions, of
-    the output less its bias)."""
+    the output less its bias, `biases[name]`)."""
     gaps = {}
     for name in ("mu", "logvar"):
         r = ref[name].astype(np.float64)
         d = np.abs(got[name].astype(np.float64) - r).max(1)
-        bias = 0.0 if w0 is None else w0[f"encoder.fc_{name}.bias"].double().cpu().numpy()
+        bias = 0.0 if biases is None else biases[name].double().cpu().numpy()
         gaps[name] = d / np.sqrt(np.mean((r - bias) ** 2))
     return gaps
 
 
-def readings(got: dict, ref: dict, w0: dict | None = None, side: str = "program",
+def readings(got: dict, ref: dict, biases: dict | None = None, side: str = "program",
              conv: str = "tf32") -> dict:
     """rec_err's gap per site over the reference's value, at the 99th
     percentile over sites and at the largest; mu's and logvar's
-    (`_latent_gaps`) the same, and the same again over what rounding at the
-    stated precision `conv` can cause at each site: the gap over the angle's
-    condition number (`reference.rvae.angle_condition`) times the unit
-    roundoff. Rounding turns an ill-conditioned site's angle, and with it its
-    canonical patch and latents, by far more than a well-conditioned one's."""
+    (`_latent_gaps`) the same, and, where the model predicts an angle (the
+    reference gives its condition number, "cond"), the same again over what
+    rounding at the stated precision `conv` can cause at each site: the gap
+    over the angle's condition number (`reference.rvae.angle_condition`)
+    times the unit roundoff. Rounding turns an ill-conditioned site's angle,
+    and with it its canonical patch and latents, by far more than a
+    well-conditioned one's."""
     err = np.abs(got["rec_err"].astype(np.float64) - ref["rec_err"]) / ref["rec_err"]
-    gaps = _latent_gaps(got, ref, w0)
-    cond = ref["cond"].astype(np.float64)
+    gaps = _latent_gaps(got, ref, biases)
+    cond = ref["cond"].astype(np.float64) if "cond" in ref else None
     out = {"site_count_gap": 0.0, "err_gap_q99": float(np.quantile(err, 0.99)),
            "err_gap_max": float(err.max())}
     for name, g in gaps.items():
-        scaled = g / (cond * UNIT_ROUNDOFF[conv])
         out[f"{name}_gap_q99"] = float(np.quantile(g, 0.99))
         out[f"{name}_gap_max"] = float(g.max())
-        out[f"{name}_gap_cond_q99"] = float(np.quantile(scaled, 0.99))
-        out[f"{name}_gap_cond_max"] = float(scaled.max())
+        if cond is not None:
+            scaled = g / (cond * UNIT_ROUNDOFF[conv])
+            out[f"{name}_gap_cond_q99"] = float(np.quantile(scaled, 0.99))
+            out[f"{name}_gap_cond_max"] = float(scaled.max())
+    if cond is None:
+        return out
     mu = gaps["mu"] / cond
     branch = RC.quarter_branch_distance(torch.as_tensor(ref["theta"])).numpy()
     print(f"angle's condition number ({side}): quantiles 0.1, 0.5, 0.9, 0.99 "

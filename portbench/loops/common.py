@@ -1,5 +1,6 @@
 """What the loops share: the run's seed streams, weights made on the device,
-the site-table build, and the program's kernel build."""
+the site-table build, the program's kernel build, and the augmentation
+draws the training entry points take."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from .. import frames as F
 from ..frames import stream_seed
 
 __all__ = ["stream_seed", "generator", "make_weights", "build_frames", "prebuild", "split",
-           "sync", "StepTimer", "percentile", "gap", "init_device"]
+           "sync", "StepTimer", "percentile", "gap", "init_device", "augment_draws"]
 
 
 def generator(seed: int, *names, device) -> torch.Generator:
@@ -60,6 +61,23 @@ def prebuild(device) -> None:
     from livae_tpu_torch.scripts._common import prebuild_kernels
 
     prebuild_kernels(device, file=sys.stderr)
+
+
+def augment_draws(cfg: dict, B: int, generator: torch.Generator, device):
+    """One step's augmentation draws (the program's PairedDraws: scale,
+    flips, jitter and the pair's angle) and its [B, latent] noise, from
+    `generator` on the device."""
+    from livae_tpu_torch.data.pipeline import PairedDraws
+
+    a, kw = cfg["augment"], dict(generator=generator, device=device)
+    scale = a["scale_min"] + (a["scale_max"] - a["scale_min"]) * torch.rand(B, **kw)
+    flip_h = torch.rand(B, **kw) < a["flip_prob"]
+    flip_v = torch.rand(B, **kw) < a["flip_prob"]
+    jy = torch.randint(-a["jitter"], a["jitter"] + 1, (B,), **kw)
+    jx = torch.randint(-a["jitter"], a["jitter"] + 1, (B,), **kw)
+    angle = 2 * math.pi * torch.rand(B, **kw)
+    eps = torch.randn((B, cfg["latent_dim"]), dtype=torch.float32, **kw)
+    return PairedDraws(scale, flip_h, flip_v, jy, jx, angle), eps
 
 
 def split(n: int, val_split: float, seed: int) -> tuple[np.ndarray, np.ndarray]:

@@ -2,13 +2,13 @@
 points run them (`scripts/train_rvae.py`, `scripts/train_vae.py`).
 
 Each epoch shuffles the train split into steps of `batch_size` sites. Each
-step is one call of the program's fused train step (`make_fused_rvae_train_step`
-or `make_fused_vae_train_step`), with a CUDA event before and after it, its
-augmentation draws and noise drawn by the benchmark on the device from the
-seed. After the steps the epoch's train metrics are read on the host at
-once; then the fused eval (`make_fused_rvae_eval` or `make_fused_eval`) runs
-over the validation split through `evaluate_fused`, as the entry points
-read it.
+step is one call of the program's fused train step (the model's binding
+builds it: `make_fused_rvae_train_step`, `make_fused_vae_train_step`), with a
+CUDA event before and after it, its augmentation draws and noise drawn by the
+benchmark on the device from the seed (the binding's `draws`). After the
+steps the epoch's train metrics are read on the host at once; then the
+binding's fused eval runs over the validation split through
+`evaluate_fused`, as the entry points read it.
 
 Set-up builds one training object (model, optimizer, schedule, step) and
 drives its first three steps, the first three of epoch 0, through the same
@@ -26,13 +26,12 @@ import time
 import numpy as np
 import torch
 
-from .. import trace as T
+from .. import spec, trace as T
 from ..reference import drive, sites as ref_sites
 from .common import (StepTimer, build_frames, gap, generator, init_device, make_weights,
                      percentile, prebuild, split, sync)
 
 CHECKED_STEPS = 3
-TERMS = ("recon_loss", "kld_loss", "cycle_loss", "canonical_loss")  # the step's loss terms
 
 
 class Run:
@@ -41,7 +40,7 @@ class Run:
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device, spans: T.Spans):
         self.cfg, self.traffic, self.seed, self.device, self.spans = cfg, traffic, seed, device, spans
-        self.kind = cfg["model"]
+        self.binding = spec.binding(cfg["model"])
         self.B = traffic["batch_size"]
 
     # --- set-up ---
@@ -51,8 +50,6 @@ class Run:
             from livae_tpu_torch.data.datasets import (AdaptiveLatticeDataset,
                                                        PairedAdaptiveLatticeDataset)
             from livae_tpu_torch.data.pipeline import AugmentConfig
-            from livae_tpu_torch.models.rvae import RVAE
-            from livae_tpu_torch.models.vae import VAE
             from livae_tpu_torch.train import engine, state
 
         cfg, dev = self.cfg, self.device
@@ -63,7 +60,7 @@ class Run:
         with self.spans("frames"):
             self.frames = build_frames(self.seed, self.traffic, dev)
         augment = AugmentConfig(**cfg["augment"])
-        make_ds = PairedAdaptiveLatticeDataset if self.kind == "rvae" else AdaptiveLatticeDataset
+        make_ds = PairedAdaptiveLatticeDataset if self.binding.PAIRED else AdaptiveLatticeDataset
         with self.spans("dataset_build"):
             ds = make_ds(self.frames, patch_size=cfg["patch_size"], padding=cfg["padding"],
                          transform=augment, normalize=cfg["normalize"], device=dev)
@@ -77,17 +74,15 @@ class Run:
                              f"steps of {self.B}; the cell needs more than {CHECKED_STEPS}")
 
         with self.spans("model"):
-            self._build(RVAE if self.kind == "rvae" else VAE, ds, augment, engine, state)
+            self._build(ds, augment, engine, state)
         with self.spans("first_calls"):
             self.checked = self._checked_steps()
             self._eval(generator(self.seed, "val", "warm-up", device=dev))
 
-    def _build(self, make_model, ds, augment, engine, state) -> None:
+    def _build(self, ds, augment, engine, state) -> None:
         """Model, weights, optimizer, schedule, train step and eval, as the entry points build them."""
         cfg, dev = self.cfg, self.device
-        extra = {"fast_resample": cfg["fast_resample"]} if self.kind == "rvae" else {}
-        model = make_model(cfg["latent_dim"], 1, cfg["patch_size"], cfg["precision"]["compute_dtype"],
-                           device=dev, generator=torch.Generator().manual_seed(0), **extra)
+        model = self.binding.train_model(cfg, dev)
         self.w0 = make_weights(model, self.seed, cfg["init"], dev)
         model.load_state_dict(self.w0)
 
@@ -101,22 +96,9 @@ class Run:
         optimizer = state.make_optimizer(model, lr, optimizer=opt["name"],
                                          weight_decay=opt["weight_decay"])
         scheduler = state.make_schedule(optimizer, lr)
-        kw = dict(patch_size=cfg["patch_size"], padding=cfg["padding"], margin=ds._margin,
-                  normalize=cfg["normalize"], device=dev)
-        loss = cfg["loss"]
-        if self.kind == "rvae":
-            self.step = engine.make_fused_rvae_train_step(
-                model, optimizer, cfg=augment, use_diversity=loss["use_diversity"],
-                canonical_weight=loss["canonical_weight"], grad_max_norm=cfg["grad_max_norm"],
-                scheduler=scheduler, **kw)
-            self.eval_fn = engine.make_fused_rvae_eval(
-                model, cfg=augment, use_diversity=loss["use_diversity"],
-                canonical_weight=loss["canonical_weight"], **kw)
-        else:
-            self.step = engine.make_fused_vae_train_step(
-                model, optimizer, cfg=augment, use_diversity=loss["use_diversity"],
-                grad_max_norm=cfg["grad_max_norm"], scheduler=scheduler, **kw)
-            self.eval_fn = engine.make_fused_eval(model, use_diversity=loss["use_diversity"], **kw)
+        self.step, self.eval_fn = self.binding.train_step(
+            model, optimizer, scheduler, augment, cfg, patch_size=cfg["patch_size"],
+            padding=cfg["padding"], margin=ds._margin, normalize=cfg["normalize"], device=dev)
         self.model, self.optimizer, self.ds = model, optimizer, ds
         self.engine = engine
         self.epoch = -1
@@ -130,23 +112,9 @@ class Run:
         self.idx = self.train_dev[perm[:S * self.B]].reshape(S, self.B)
         self.pos = 0
 
-    def _draws(self):
-        """One step's augmentation draws and noise, from the epoch's generator."""
-        from livae_tpu_torch.data.pipeline import PairedDraws
-
-        a, B, kw = self.cfg["augment"], self.B, dict(generator=self.gen, device=self.device)
-        scale = a["scale_min"] + (a["scale_max"] - a["scale_min"]) * torch.rand(B, **kw)
-        flip_h = torch.rand(B, **kw) < a["flip_prob"]
-        flip_v = torch.rand(B, **kw) < a["flip_prob"]
-        jy = torch.randint(-a["jitter"], a["jitter"] + 1, (B,), **kw)
-        jx = torch.randint(-a["jitter"], a["jitter"] + 1, (B,), **kw)
-        angle = 2 * math.pi * torch.rand(B, **kw)
-        eps = torch.randn((B, self.cfg["latent_dim"]), dtype=torch.float32, **kw)
-        return PairedDraws(scale, flip_h, flip_v, jy, jx, angle), eps
-
     def _call(self):
         """The next step of the epoch: (metrics, draws, eps, site indices)."""
-        d, e = self._draws()
+        d, e = self.binding.draws(self.cfg, self.B, self.gen, self.device)
         idx = self.idx[self.pos:self.pos + 1]
         loss = self.cfg["loss"]
         m = self.step(*self.site_table, idx, self.gen, loss["beta"], loss["gamma"],
@@ -166,7 +134,7 @@ class Run:
             steps.append({"idx": idx.clone(), "draws": {k: v.clone() for k, v in vars(d).items()},
                           "eps": e.clone()})
             if t == 0:  # a leaf the optimizer holds no state for got no gradient
-                terms = {k: float(m[k]) for k in TERMS if k in m}
+                terms = {k: float(v) for k, v in m.items()}  # the reference names its terms
                 first = {k: self.optimizer.state[p]["exp_avg"] / (1 - beta1)
                          if "exp_avg" in self.optimizer.state[p] else torch.zeros_like(p)
                          for k, p in params.items()}
@@ -340,9 +308,9 @@ def compare(ev: dict, cfg: dict, traffic: dict, device, sides=("program",)) -> d
                "terms_gap_step1": math.inf, "grad_diff_median": math.inf,
                "grad_diff_q70": math.inf, "change_gap": math.inf}
         return {side: bad for side in sides}
-    model = cfg["model"]
+    b = spec.binding(cfg["model"])
     follow = lambda precision, half=False: drive.follow_training(
-        model, ev["w0"], frames, steps, cfg, ev["lrs"], precision, half)
+        b.reference_loss, b.PAIRED, ev["w0"], frames, steps, cfg, ev["lrs"], precision, half)
     stated = cfg["precision"]["reference"]
     ref = follow(stated)
     got = {"program": lambda: ev, "control": lambda: follow(cfg["precision"]["control"]),

@@ -1,7 +1,8 @@
 """Arithmetic the per-layer metrics (metrics/*.py) share: kernels of the
-traced window, the hand-written operations' bounds against the time of the
-kernels mapped to them, the idle share, the model FLOPs' share of the peak.
-A reader that finds nothing to read returns None."""
+traced window, the hand-written operations' bounds (each model's binding
+lists its operations) against the time of the kernels mapped to them, the
+idle share, the model FLOPs' share of the peak. A reader that finds nothing
+to read returns None."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import json
 import re
 from pathlib import Path
 
+from . import spec
 from .counts import ops as counts
 from .trace import Trace, busy_us
 
@@ -27,9 +29,19 @@ def kernels_between(trace: Trace, start: float, end: float) -> int | None:
     return sum(is_kernel(o[0]) for o in trace.ops_in(start, end))
 
 
+def kernel_patterns() -> dict[str, list[str]]:
+    """The kernel map's operations, with those each model binding adds (its KERNELS)."""
+    out = {op: list(pats) for op, pats in KERNEL_MAP["operations"].items()}
+    for model in spec.models():
+        for op, pats in getattr(spec.binding(model), "KERNELS", {}).items():
+            out.setdefault(op, []).extend(pats)
+    return out
+
+
 def mapped_time_us(trace: Trace, operations) -> float:
     """Device time of the kernels the kernel map gives to `operations`."""
-    pats = [re.compile(p) for op in operations for p in KERNEL_MAP["operations"][op]]
+    patterns = kernel_patterns()
+    pats = [re.compile(p) for op in operations for p in patterns[op]]
     return sum(b - a for name, a, b in trace.ops if any(p.search(name) for p in pats))
 
 
@@ -53,24 +65,21 @@ def idle_pct(trace: Trace) -> float | None:
 def train_work(ctx) -> list[tuple[str, int]]:
     """The hand-written operations of the traced window's train steps and eval batches."""
     cfg, info = ctx.config, ctx.trace.info
-    if cfg["model"] != "rvae":
-        return []
-    elem = ELEM[cfg["precision"]["compute_dtype"]]
-    S, pad = cfg["patch_size"], cfg["padding"]
-    work = counts.rvae_ops(S, pad, info["batch"], elem, train=True, paired=True,
-                           augmented_rotation=True) * info["steps"]
+    ops = spec.binding(cfg["model"]).kernel_ops
+    elem, pad = ELEM[cfg["precision"]["compute_dtype"]], cfg["padding"]
+    work = ops("train", cfg, pad, info["batch"], elem) * info["steps"]
     for b in info["eval_batches"]:
-        work += counts.rvae_ops(S, pad, b, elem, train=False, paired=True, augmented_rotation=True)
+        work += ops("eval", cfg, pad, b, elem)
     return work
 
 
 def encode_work(ctx) -> list[tuple[str, int]]:
     """The hand-written operations of the traced passes (float32, no augmentation)."""
     cfg, info = ctx.config, ctx.trace.info
+    ops = spec.binding(cfg["model"]).kernel_ops
     per_pass = []
     for b in info["batches"]:
-        per_pass += counts.rvae_ops(cfg["patch_size"], ctx.traffic["padding"], b, 4, train=False,
-                                    paired=False, augmented_rotation=False)
+        per_pass += ops("encode", cfg, ctx.traffic["padding"], b, 4)
     return per_pass * info["passes"]
 
 

@@ -1,6 +1,7 @@
 """Operation, byte and FLOP counts against hand arithmetic at one shape."""
 
 from portbench.counts import ops
+from portbench.models import rvae
 
 
 def test_rot3_bytes_match_the_kernel_table():
@@ -19,7 +20,7 @@ def test_upconv_bytes_at_stage_zero():
     assert ops.upconv_bytes("upconv_bwd", B, H, W, C, 2, relu=False) == 2 * (2 * B * 4 * C * 64 + B * 12 * C * 16)
     # the four stages of a decoder pass sum to the 0.1617 ms bound of the kernel table
     total = sum(ops.upconv_bytes("upconv_fwd", 512, H, W, C, 2, r)
-                for _, H, W, C, r in ops.decoder_stages(128))
+                for _, H, W, C, r in rvae.decoder_stages(128))
     assert abs(total / 3.35e12 * 1e3 - 0.1617) < 1e-3
 
 
@@ -31,13 +32,13 @@ def test_phasemax_bytes():
 
 
 def test_step_operations():
-    train = ops.rvae_ops(128, 32, 512, 2, train=True, paired=True, augmented_rotation=True)
+    train = rvae.batch_ops(128, 32, 512, 2, train=True, paired=True, augmented_rotation=True)
     names = [n for n, _ in train]
     assert names.count("rot3_fwd") == 3 and names.count("rot3_bwd") == 2
     assert names.count("upconv_fwd") == names.count("upconv_bwd") == 4
     assert names.count("phasemax_fwd") == names.count("phasemax_bwd") == 2
-    encode = [n for n, _ in ops.rvae_ops(128, 16, 1024, 4, train=False, paired=False,
-                                         augmented_rotation=False)]
+    encode = [n for n, _ in rvae.batch_ops(128, 16, 1024, 4, train=False, paired=False,
+                                           augmented_rotation=False)]
     assert encode.count("rot3_fwd") == 2 and len(encode) == 8
 
 
