@@ -15,6 +15,7 @@ __all__ = [
     "cycle_consistency_loss",
     "vae_loss",
     "rvae_loss",
+    "spatial_vae_loss",
 ]
 
 
@@ -72,3 +73,29 @@ def rvae_loss(
 
     total = recon_loss + beta * kld_loss + gamma * rotation_loss
     return total, recon_loss, kld_loss, rotation_loss
+
+
+def _normal_kl(mu, logstd, sigma: float = 1.0) -> torch.Tensor:
+    """KL(N(mu, exp(logstd)^2) || N(0, sigma^2)), elementwise."""
+    return (-logstd + math.log(sigma) + (torch.exp(2 * logstd) + mu**2) / (2 * sigma**2)
+            - 0.5)
+
+
+def spatial_vae_loss(recon_x, x, mu, logstd, theta_mu=None, theta_logstd=None, dx_mu=None,
+                     dx_logstd=None, theta_prior: float = math.pi, beta: float = 1.0):
+    """spatial-VAE's negative ELBO (Bepler et al. 2019): a unit-variance
+    Gaussian reconstruction, 0.5 x the squared error summed over pixels, plus
+    beta x the KL terms, each summed over its latents, all means over the
+    batch: z against N(0, 1), theta against N(0, theta_prior^2), the
+    unscaled shift dx against N(0, 1) (a group that is None is left out).
+    Returns (total, recon, kld, {"kl_z", "kl_theta", "kl_dx"})."""
+    batch_size = x.shape[0]
+    recon_loss = 0.5 * torch.sum((recon_x - x) ** 2) / batch_size
+    zero = torch.zeros((), dtype=recon_loss.dtype, device=recon_loss.device)
+    terms = {"kl_z": _normal_kl(mu, logstd).sum(1).mean(), "kl_theta": zero, "kl_dx": zero}
+    if theta_mu is not None:
+        terms["kl_theta"] = _normal_kl(theta_mu, theta_logstd, theta_prior).sum(1).mean()
+    if dx_mu is not None:
+        terms["kl_dx"] = _normal_kl(dx_mu, dx_logstd).sum(1).mean()
+    kld_loss = terms["kl_z"] + terms["kl_theta"] + terms["kl_dx"]
+    return recon_loss + beta * kld_loss, recon_loss, kld_loss, terms

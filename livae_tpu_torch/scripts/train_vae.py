@@ -9,11 +9,20 @@ point): patch 128, padding 32, batch 512, latent 16, epochs 50, lr 1e-3, Adam
 with cosine warm restarts (T_0 = 10 epochs, T_mult = 2), the mean-reduced VAE
 loss at beta 1 with optional linear beta annealing, gradient clip 5, best and
 _final checkpoints in the reference's torch.save layout.
+
+`--arch spatial` trains spatial-VAE's coordinate-decoder rVAE
+(models/spatial_vae.py) through the same epoch loop, fused step, eval,
+checkpoints and data-parallel path: `--p-hidden-dim`, `--p-num-layers`,
+`--q-hidden-dim`, `--q-num-layers` (upstream's 500, 2, 500, 1),
+`--theta-prior` (pi), `--dx-scale` (0.1), `--no-rotate`, `--no-translate`;
+`--latent-dim` and `--lr` keep their defaults (upstream's are 2 and 1e-4).
+Its large layers are not split over a model axis: --model-parallel stays 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from datetime import datetime
 from pathlib import Path
@@ -21,6 +30,7 @@ from pathlib import Path
 import torch
 
 from ..data.datasets import AdaptiveLatticeDataset, default_transform
+from ..models.spatial_vae import SpatialVAE
 from ..models.vae import VAE
 from ..train.engine import (
     MetricLogger,
@@ -56,18 +66,22 @@ def run_training(args) -> dict:
     """Train as the flags say; with --num-devices N > 1 on N spawned ranks,
     returning rank 0's result."""
     device = resolve_run_device(args)
+    if args.arch == "spatial" and args.model_parallel != 1:
+        raise SystemExit("--arch spatial trains data-parallel only: --model-parallel must be 1")
     return (run_data_parallel(_train, args, device, lambda: _model(args, "cpu"))
             or _train(None, device, args))
 
 
-def _model(args, device) -> VAE:
-    return VAE(
-        latent_dim=args.latent_dim,
-        patch_size=args.patch_size,
-        compute_dtype=None if args.no_amp else "bfloat16",
-        device=device,
-        generator=stream_generator(args.seed, "init", 0, "cpu"),
-    )
+def _model(args, device) -> VAE | SpatialVAE:
+    common = dict(latent_dim=args.latent_dim, patch_size=args.patch_size,
+                  compute_dtype=None if args.no_amp else "bfloat16", device=device,
+                  generator=stream_generator(args.seed, "init", 0, "cpu"))
+    if args.arch == "spatial":
+        return SpatialVAE(hidden_dim=args.p_hidden_dim, num_layers=args.p_num_layers,
+                          q_hidden_dim=args.q_hidden_dim, q_num_layers=args.q_num_layers,
+                          rotate=not args.no_rotate, translate=not args.no_translate,
+                          theta_prior=args.theta_prior, dx_scale=args.dx_scale, **common)
+    return VAE(**common)
 
 
 def _train(mesh: DataMesh | None, device, args) -> dict:
@@ -95,7 +109,7 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
 
     model = _model(args, device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"VAE: {n_params / 1e6:.2f}M parameters")
+    print(f"{type(model).__name__}: {n_params / 1e6:.2f}M parameters")
     place_model(model, mesh)  # before the optimizer, which must hold the split layers
 
     steps_per_epoch = max(1, len(train_idx) // args.batch_size)
@@ -189,7 +203,7 @@ def _train(mesh: DataMesh | None, device, args) -> dict:
             vis_gen = stream_generator(args.seed, "vis", epoch, device)
             x = dataset.batch_at(val_idx[: args.vis_samples])
             with torch.no_grad():
-                recon, _, _ = model(x, generator=vis_gen)
+                recon = model(x, generator=vis_gen)[0]
             if writer is not None:
                 log_reconstructions_tensorboard(writer, x, recon, epoch)
 
@@ -268,6 +282,26 @@ def build_argparser() -> argparse.ArgumentParser:
         action="store_true",
         help="Disable mixed precision (bfloat16 compute); use float32 everywhere",
     )
+    spatial = parser.add_argument_group(
+        "spatial-VAE (--arch spatial; Bepler et al. 2019, the upstream code's defaults)")
+    spatial.add_argument("--arch", choices=("vae", "spatial"), default="vae",
+                         help="vae: the convolutional VAE; spatial: spatial-VAE's "
+                         "coordinate-decoder rVAE")
+    spatial.add_argument("--p-hidden-dim", type=int, default=500,
+                         help="generator (coordinate MLP) width")
+    spatial.add_argument("--p-num-layers", type=int, default=2, help="generator tanh layers")
+    spatial.add_argument("--q-hidden-dim", type=int, default=500,
+                         help="inference MLP width")
+    spatial.add_argument("--q-num-layers", type=int, default=1,
+                         help="inference MLP hidden layers")
+    spatial.add_argument("--theta-prior", type=float, default=math.pi,
+                         help="std of the rotation's Gaussian prior (radians)")
+    spatial.add_argument("--dx-scale", type=float, default=0.1,
+                         help="scale of the inferred shift on the [-1, 1] grid")
+    spatial.add_argument("--no-rotate", action="store_true",
+                         help="infer no rotation")
+    spatial.add_argument("--no-translate", action="store_true",
+                         help="infer no translation")
     return parser
 
 

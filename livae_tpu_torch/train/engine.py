@@ -8,7 +8,8 @@ Metrics accumulate on the device and reach the host once per epoch
 Two families: the paired rVAE steps (cycle consistency and the
 canonical-frame loss), and the generic steps on unpaired batches, which
 dispatch on the model's outputs: 3 (a plain VAE) or 5 (an rVAE trained with
-the mean-reduced VAE loss on its rotated reconstruction).
+the mean-reduced VAE loss on its rotated reconstruction), or a
+`SpatialOutputs` (spatial-VAE, trained with its own ELBO).
 
 The train steps update the model's parameters and the optimizer state in
 place, clip the gradients in place over every parameter of the model, and
@@ -70,8 +71,9 @@ from ..data.pipeline import (
 from .. import tracing
 from ..device import resolve_device
 from ..tracing import span
-from ..losses import rotation_diversity_loss, rvae_loss, vae_loss
+from ..losses import rotation_diversity_loss, rvae_loss, spatial_vae_loss, vae_loss
 from ..metrics import compute_psnr, compute_ssim, latent_stats, psnr, ssim
+from ..models.spatial_vae import SpatialOutputs
 from ..ops.resample import rotate_image_fast
 from ..parallel.mesh import DataMesh, all_reduce_mean, gather_rows, shard_batch
 from ..parallel.tensor import is_model_sharded
@@ -242,7 +244,8 @@ def _objective(model, loss, mesh: DataMesh | None):
 
 
 def _latent_dim(model) -> int:
-    return model.decoder.fc.in_features
+    """The width of one patch's reparameterisation noise."""
+    return getattr(model, "noise_dim", None) or model.decoder.fc.in_features
 
 
 def _global_draws(B: int, cfg, generator, dev, draws, eps, latent_dim: int,
@@ -319,8 +322,18 @@ def _generic_terms(outputs, x, beta, gamma, use_diversity, mesh: DataMesh | None
     """The unpaired objective, dispatched on the model's outputs: the
     mean-reduced VAE loss on the (rotated) reconstruction, plus gamma times the
     rotation-diversity term (over the whole batch's theta under a mesh) for a
-    5-output model when asked. Returns (total, aux); aux's theta and canonical
-    are None for a plain VAE."""
+    5-output model when asked; spatial-VAE's ELBO (`spatial_vae_loss`, beta
+    on its KL terms, its theta the inferred mean) for a SpatialOutputs.
+    Returns (total, aux); aux's theta and canonical are None for a plain
+    VAE."""
+    if isinstance(outputs, SpatialOutputs):
+        o = outputs
+        total, rl, kl, _ = spatial_vae_loss(o.recon, x, o.mu, o.logstd, o.theta_mu,
+                                            o.theta_logstd, o.dx_mu, o.dx_logstd,
+                                            o.theta_prior, beta)
+        aux = dict(recon=o.recon, canonical=None, theta=o.theta_mu, mu=o.mu,
+                   logvar=2 * o.logstd, rl=rl, kl=kl, cyc=torch.zeros((), device=x.device))
+        return total, aux
     if len(outputs) == 3:
         recon, mu, logvar = outputs
         canonical = theta = None

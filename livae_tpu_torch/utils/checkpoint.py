@@ -106,7 +106,10 @@ def rvae_spec(patch_size: int, latent_dim: int) -> list[tuple]:
 
 def model_spec(model: torch.nn.Module) -> list[tuple]:
     """The spec of one of the port's models: rvae_spec for a model with an
-    STN, else vae_spec."""
+    STN, else vae_spec. spatial-VAE has no JAX counterpart, so no spec: its
+    checkpoints hold its own state dict."""
+    if hasattr(model, "noise_dim"):
+        raise ValueError(f"{type(model).__name__} has no JAX counterpart to convert to or from")
     make = rvae_spec if hasattr(model.encoder, "rotation_stn") else vae_spec
     return make(model.patch_size, model.latent_dim)
 

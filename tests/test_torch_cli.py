@@ -42,14 +42,27 @@ def _surface(parser):
     return out
 
 
+# train_vae's options for spatial-VAE (--arch spatial), which the JAX script lacks
+SPATIAL_DESTS = {"arch", "p_hidden_dim", "p_num_layers", "q_hidden_dim", "q_num_layers",
+                 "theta_prior", "dx_scale", "no_rotate", "no_translate"}
+
+
 @pytest.mark.parametrize("name", ["train_rvae", "train_vae"])
 def test_parser_has_the_jax_parsers_options_and_defaults(monkeypatch, name):
+    """The JAX script's options with their defaults, and for train_vae the
+    spatial-VAE options besides, defaulting to the convolutional VAE."""
     monkeypatch.syspath_prepend(str(REPO / "scripts"))
     jax_script = __import__(name)
     ours = {"train_rvae": train_rvae, "train_vae": train_vae}[name].build_argparser()
     theirs = jax_script.build_argparser()
-    assert _surface(ours) == _surface(theirs)
-    assert vars(ours.parse_args([])) == vars(theirs.parse_args([]))
+    extra = SPATIAL_DESTS if name == "train_vae" else set()
+    surface = _surface(ours)
+    assert {v[0] for k, v in surface.items() if k not in _surface(theirs)} == extra
+    assert {k: v for k, v in surface.items() if v[0] not in extra} == _surface(theirs)
+    defaults = vars(ours.parse_args([]))
+    assert {k: v for k, v in defaults.items() if k not in extra} == vars(theirs.parse_args([]))
+    if extra:
+        assert defaults["arch"] == "vae"
 
 
 def _run_rvae(tmp_path, name, *extra):
